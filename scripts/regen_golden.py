@@ -1,7 +1,7 @@
 """Regenerate tests/golden/cornell_64_f8_ldr.npy DELIBERATELY.
 
-Run on the CPU backend (the golden test is CPU-only; TPU diverges ~38 dB
-from CPU on this chaotic workload, PERF.md):
+Run on the CPU backend (the golden test runs on the CPU; chip_smoke.py
+compares the GPU against the same file):
 
     python scripts/regen_golden.py
 

@@ -1,8 +1,8 @@
 """render_frame_banded == render_frame, bit-exact.
 
-The sequential row-band path exists to fit frames the XLA scheduler
-cannot hold as one program (true 4K under jax 0.9 - PERF.md r4); it must
-change NOTHING about the image. Unlike the mesh path there is no halo
+The sequential row-band path renders frames past one program's budget
+(render/pipeline.auto_bands) as band programs; it must change NOTHING
+about the image. Unlike the mesh path there is no halo
 policy: every pass reads through full-resolution views and every RNG
 stream keys on band-invariant global pixel indices, so equality is exact,
 not approximate - including across frames (state carry), under motion
@@ -60,6 +60,7 @@ def test_banded_matches_whole_frame(n_bands):
 def test_auto_bands():
     assert pipeline.auto_bands(512, 512) == 1
     assert pipeline.auto_bands(1920, 1080) == 1
-    k = pipeline.auto_bands(3840, 2160)
-    assert k > 1 and 2160 % k == 0
-    assert 3840 * (2160 // k) <= pipeline._BAND_RAY_BUDGET
+    assert pipeline.auto_bands(3840, 2160) == 1     # true 4K: one program
+    k = pipeline.auto_bands(8192, 8192)
+    assert k > 1 and 8192 % k == 0
+    assert 8192 * (8192 // k) <= pipeline._BAND_RAY_BUDGET

@@ -123,12 +123,13 @@ def test_empty_scene():
     assert (np.asarray(res["tri"]) == -1).all()
 
 
-def test_brute_max_routing_knob(trace_env):
-    """TPU_RT_BRUTE_MAX (trace_api._brute_max) reroutes the swept path
-    to the stream-BVH pointer walk at TRACE time; both intersectors must
-    agree on a real catalog scene so flipping the routing cap (from
-    scripts/ucb_bigscene.py numbers) can never change images beyond
-    exact-t ties."""
+def test_brute_max_routing_knob(monkeypatch):
+    """Lowering trace_api.BRUTE_FORCE_MAX_TRIS reroutes the sweep to the
+    stream-BVH pointer walk at TRACE time; both intersectors must agree
+    on a real catalog scene, so moving the routing cap can never change
+    images beyond exact-t ties."""
+    import jax
+
     from tpu_raytracer.models import scenes
     from tpu_raytracer.ops import trace_api
 
@@ -140,8 +141,10 @@ def test_brute_max_routing_knob(trace_env):
     rd = jnp.asarray(rd / np.linalg.norm(rd, axis=-1, keepdims=True))
 
     swept = trace_api.scene_trace(scene, ro, rd, 1e-3, 50.0)
-    trace_env.setenv("TPU_RT_BRUTE_MAX", "1")        # force the walk
+    monkeypatch.setattr(trace_api, "BRUTE_FORCE_MAX_TRIS", 1)  # the walk
+    jax.clear_caches()
     walk = trace_api.scene_trace(scene, ro, rd, 1e-3, 50.0)
+    jax.clear_caches()
     st, wt = np.asarray(swept["tri"]), np.asarray(walk["tri"])
     assert ((st >= 0) == (wt >= 0)).all()
     np.testing.assert_allclose(np.asarray(swept["t"]),

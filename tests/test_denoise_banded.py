@@ -1,10 +1,9 @@
 """atrous_denoise_banded == atrous_denoise (up to fusion rounding).
 
-The sequential row-band a-trous exists because jax 0.9's XLA:TPU
-scheduler OOMs the whole-4K denoiser as one program (PERF.md r5); the
-banded form reads every tap the whole-frame form reads (each level's
-halo is its exact tap reach, 2*step; out-of-image taps carry weight 0
-in both). The only residual difference is XLA FMA-contraction rounding
+The sequential row-band a-trous serves frames the pipeline renders in
+row bands (render/pipeline.auto_bands); the banded form reads every tap
+the whole-frame form reads (each level's halo is its exact tap reach,
+2*step; out-of-image taps carry weight 0 in both). The only residual difference is XLA FMA-contraction rounding
 at the different program boundaries - ULP-level (~2e-7 observed), so
 the check is allclose at 1e-5, not bitwise (the denoiser is a post
 filter, not part of the bit-exact RNG-replay path).

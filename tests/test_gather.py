@@ -1,13 +1,10 @@
-"""One-hot MXU gathers: exactness of the winner-row fetch.
+"""One-hot matmul gathers: exactness of the winner-row fetch.
 
 The winner-row fetch (ops/hit.fetch_cols) must be BIT-EXACT: t/u/v are
 recomputed from the fetched row and integer ids ride bitcast-as-float
 columns. `select_gather_cols` is an exact-f32 one-hot matmul; fetch_cols
 must route through it (or an exact gather+transpose past the one-hot
 budget), including zero rows for invalid (-1) idx.
-
-(The VMEM Pallas one-hot variant these tests used to cover lost its
-on-chip A/Bs and was deleted - PERF.md negative result.)
 """
 
 import numpy as np

@@ -37,26 +37,6 @@ def test_cornell_golden_psnr():
     assert p > 45.0, f"PSNR vs golden = {p:.1f} dB"
 
 
-def test_segmented_sweep_full_pipeline(trace_env):
-    """Forcing the segmented t_max-chained worklists through the WHOLE
-    ReSTIR frame (path trace, NEE/occlusion, spatial taps, post) must
-    reproduce the plain-sweep render - integration coverage beyond the
-    trace-level equivalence tests. Both runs force the Pallas dispatch
-    (interpret mode): the default CPU path is the XLA brute scan, which
-    never reads TPU_RT_SEG_CAP, and a flipped gate only takes effect
-    after a cache clear - the original form of this test silently
-    compared one cached default-path executable against itself."""
-    trace_env.setenv("TPU_RT_FORCE_PALLAS", "1")
-    trace_env.setenv("TPU_RT_SEG_CAP", "2")
-    got = _render_frames(48, 48, 3)
-
-    # reference: identical run on the plain single-sweep Pallas path
-    trace_env.delenv("TPU_RT_SEG_CAP")
-    want = _render_frames(48, 48, 3)
-    p = psnr(got, want)
-    assert p > 45.0, f"segmented vs single sweep PSNR = {p:.1f} dB"
-
-
 GOLDEN_RESTIR = os.path.join(os.path.dirname(__file__), "golden",
                              "restir_48_f4_ldr.npy")
 
@@ -92,92 +72,10 @@ def _render_frames(w, h, frames):
     return np.asarray(ldr, np.float32)
 
 
-def test_mxuv_full_pipeline(trace_env, monkeypatch):
-    """The mxuv2 selection-free closest-hit through the WHOLE ReSTIR
-    frame must reproduce the default (mxuf2) path - winners agree up to
-    exact-t ties, so the image should match. Protects the on-chip A/B
-    (ladder steps 03/05). KERNEL_MODE is baked at import from
-    TPU_RT_KERNEL, so the test patches the module attribute (trace_api
-    reads it at trace time) plus a cache clear via trace_env."""
-    from tpu_raytracer.ops import pallas_trace
-
-    monkeypatch.setattr(pallas_trace, "KERNEL_MODE", "mxuv2")
-    trace_env.setenv("TPU_RT_FORCE_PALLAS", "1")   # also clears caches
-    got = _render_frames(48, 48, 3)
-
-    monkeypatch.setattr(pallas_trace, "KERNEL_MODE", "mxuf2")
-    trace_env.setenv("TPU_RT_FORCE_PALLAS", "1")   # re-clear post-patch
-    want = _render_frames(48, 48, 3)
-    p = psnr(got, want)
-    assert p > 45.0, f"mxuv2 vs mxuf2 PSNR = {p:.1f} dB"
-
-
-def test_streamed_kernel_full_pipeline(trace_env):
-    """A just-beyond-VMEM scene (> MXUF_MAX_TP tris) through the WHOLE
-    ReSTIR frame on the streamed (mxus) kernel must match the XLA brute
-    render - end-to-end coverage for config 6's actual dispatch path,
-    which no other full-pipeline test reaches."""
-    from tpu_raytracer.ops import pallas_trace
-    from tpu_raytracer.scene.builder import SceneBuilder
-    from tpu_raytracer.scene.geometry import create_plane, create_sphere
-    from tpu_raytracer.scene.material import Material
-    from tpu_raytracer.utils.math3d import rotation_x, scale, translation
-
-    b = SceneBuilder()
-    plane = b.add_mesh(create_plane())
-    mat = b.add_material(Material((0.73, 0.73, 0.73, 1.0)))
-    body = b.add_material(Material((0.8, 0.7, 0.5, 1.0)).roughness(0.4))
-    b.add_instance(plane, mat, translation([0, -1, 0]) @ scale(2.0))
-    b.register_quad_light(
-        plane, translation([0, 0.99, 0]) @ rotation_x(np.pi) @ scale(0.5),
-        [1.0, 1.0, 1.0], 10.0)
-    s5 = b.add_mesh(create_sphere(5))
-    s4 = b.add_mesh(create_sphere(4))
-    b.add_instance(s5, body, translation([0, -0.4, 0]) @ scale(0.6))
-    for tx in (-0.6, 0.0, 0.6):
-        b.add_instance(s4, body, translation([tx, -0.8, 0.4]) @ scale(0.25))
-    scene = b.build()
-    assert scene.tri_planes.shape[2] > pallas_trace.MXUF_MAX_TP
-    assert not scene.instanced
-
-    w = h = 24
-    cam = camera_mod.CameraController()
-
-    def render():
-        state = pipeline.init_state(w, h)
-        u = renderer.camera_to_device(cam.uniform(1.0, 0, scene.num_lights))
-        ldr, hdr, state, aux = pipeline.render_frame(
-            scene, u, jnp.uint32(0), state, w, h)
-        return np.asarray(ldr, np.float32)
-
-    want = render()                               # XLA brute scan
-    trace_env.setenv("TPU_RT_FORCE_PALLAS", "1")  # -> streamed mxus
-    got = render()
-    p = psnr(got, want)
-    assert p > 40.0, f"mxus pipeline vs XLA brute PSNR = {p:.1f} dB"
-
-
-def test_no_worklist_full_pipeline(trace_env):
-    """TPU_RT_NO_WORKLIST=1 (skip the slab/sort prepass; kernel sweeps
-    every unit in layout order) through the WHOLE frame must match the
-    culled default up to exact-t tie reordering. Protects ladder step
-    05b."""
-    trace_env.setenv("TPU_RT_FORCE_PALLAS", "1")
-    trace_env.setenv("TPU_RT_NO_WORKLIST", "1")
-    got = _render_frames(48, 48, 2)
-    trace_env.delenv("TPU_RT_NO_WORKLIST")
-    want = _render_frames(48, 48, 2)
-    p = psnr(got, want)
-    assert p > 45.0, f"no-worklist vs default PSNR = {p:.1f} dB"
-
-
 def test_last_skip_full_pipeline(trace_env):
     """TPU_RT_LAST_SKIP=0 (always-dual final bounce trace, the
     pre-routing behavior) must be bit-identical to the default
-    shadow-only routing: the routed-away bounce result is never read.
-    Protects ladder step 08d; runs through the REAL kernels so the
-    any-hit/closest-hit blocked-flag agreement is exercised too."""
-    trace_env.setenv("TPU_RT_FORCE_PALLAS", "1")
+    shadow-only routing: the routed-away bounce result is never read."""
     trace_env.setenv("TPU_RT_LAST_SKIP", "0")
     want = _render_frames(48, 48, 2)
     trace_env.delenv("TPU_RT_LAST_SKIP")
@@ -187,51 +85,9 @@ def test_last_skip_full_pipeline(trace_env):
 
 def test_gather_t_full_pipeline(trace_env):
     """TPU_RT_GATHER_T=1 (column-major gather outputs on neighbor reads)
-    is bit-identical at the op level; this pins the whole frame too.
-    Protects ladder step 08b."""
+    is bit-identical at the op level; this pins the whole frame too."""
     trace_env.setenv("TPU_RT_GATHER_T", "1")
     got = _render_frames(48, 48, 2)
     trace_env.delenv("TPU_RT_GATHER_T")
     want = _render_frames(48, 48, 2)
     assert float(np.abs(got - want).max()) == 0.0
-
-
-def _render_frames_static(w, h, frames):
-    """Like _render_frames but with the product loop's static_ok
-    eligibility (frame > 0), which TPU_RT_GB_REUSE needs to engage."""
-    scene = scenes.create_cornell_box()
-    cam = camera_mod.CameraController()
-    state = pipeline.init_state(w, h)
-    for frame in range(frames):
-        uniform = renderer.camera_to_device(
-            cam.uniform(1.0, frame, scene.num_lights))
-        ldr, hdr, state, aux = pipeline.render_frame(
-            scene, uniform, jnp.uint32(frame), state, w, h,
-            static_ok=frame > 0)
-    return np.asarray(ldr, np.float32)
-
-
-def test_adoptable_combo_full_pipeline(trace_env, monkeypatch):
-    """The widest combination scripts/r4_autoflip.py may adopt
-    unattended (mxuv2 + HIST_QUAD + GATHER_T + GB_REUSE; OHG was
-    deleted after losing its on-chip A/Bs) through the whole ReSTIR
-    frame vs committed defaults. Each gate is individually
-    bit-identical or winner-equal, but the unattended flip adopts them
-    TOGETHER; this pins the composition, not just the parts."""
-    from tpu_raytracer.ops import pallas_trace
-
-    monkeypatch.setattr(pallas_trace, "KERNEL_MODE", "mxuv2")
-    trace_env.setenv("TPU_RT_FORCE_PALLAS", "1")
-    trace_env.setenv("TPU_RT_HIST_QUAD", "1")
-    trace_env.setenv("TPU_RT_GATHER_T", "1")
-    trace_env.setenv("TPU_RT_GB_REUSE", "1")
-    got = _render_frames_static(48, 48, 3)
-
-    monkeypatch.setattr(pallas_trace, "KERNEL_MODE", "mxuf2")
-    for k in ("TPU_RT_HIST_QUAD", "TPU_RT_GATHER_T",
-              "TPU_RT_GB_REUSE"):
-        trace_env.delenv(k)
-    trace_env.setenv("TPU_RT_FORCE_PALLAS", "1")   # re-clear caches
-    want = _render_frames_static(48, 48, 3)
-    p = psnr(got, want)
-    assert p > 45.0, f"08f combo vs defaults PSNR = {p:.1f} dB"

@@ -69,10 +69,10 @@ def _write_tiny_gltf(tmpdir: str) -> str:
             + indices.tobytes())
     with open(os.path.join(tmpdir, "buf.bin"), "wb") as f:
         f.write(blob)
-    from PIL import Image
+    from tpu_raytracer.utils import png
 
-    Image.fromarray((np.random.rand(8, 8, 3) * 255).astype(np.uint8)).save(
-        os.path.join(tmpdir, "tex.png"))
+    png.write(os.path.join(tmpdir, "tex.png"),
+              (np.random.rand(8, 8, 3) * 255).astype(np.uint8))
 
     doc = {
         "asset": {"version": "2.0"},

@@ -1,4 +1,4 @@
-"""Multi-chip screen-tile sharding: tiled pipeline == single-chip pipeline.
+"""Multi-device screen-tile sharding: tiled pipeline == single-device pipeline.
 
 Runs on 8 virtual CPU devices (conftest). This is the framework's
 distributed-correctness test: halo exchange (ppermute), band addressing,
@@ -89,7 +89,7 @@ def test_tiled_matches_single_chip_full_halo():
 
 def test_tiled_matches_single_chip_with_motion():
     """Camera motion exercises temporal reprojection across band borders
-    (the halo path); results must still match single-chip.
+    (the halo path); results must still match one device.
 
     Kept small: this box exposes ONE cpu core, the 8 virtual device threads
     serialize, and XLA aborts cross-device collectives whose participants
@@ -209,10 +209,10 @@ def test_gather_t_mode_bit_identical(trace_env):
 
 
 def test_denoised_screenshot_on_sharded_state():
-    """Multi-chip screenshot path: denoised_screenshot consumes the
+    """Multi-device screenshot path: denoised_screenshot consumes the
     band-SHARDED state["gb"] plus the replicated hdr exactly as the app
     does under --tiles (app/interactive.py K-key / auto-shot). GSPMD must
-    produce the same image as the single-chip pipeline's screenshot."""
+    produce the same image as the one-device pipeline's screenshot."""
     from tpu_raytracer.app.screenshot import denoised_screenshot
 
     scene = scenes.create_cornell_box()

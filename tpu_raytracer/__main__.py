@@ -4,18 +4,12 @@ import os
 
 from .app import interactive
 from .utils.config import parse_args
-from .utils.tuned import apply_tuned
 
 
 def main():
-    apply_tuned()   # measured-winner gate defaults; explicit env wins
-    # APP-only adoption of the G-buffer reuse gate (VERDICT r4 item 8):
-    # bit-identical image, measured +2.7% wall-clock on top of the tuned
-    # config (5.30 vs 5.16 fps, r5 step 28). It stays OUT of TUNED.json
-    # because it skips the primary sweep's rays on static frames, and
-    # the driver headline is rays-based - adopting it there would make
-    # Mrays/s under-report a wall-clock win (PERF.md comparator note).
-    # The app's product metric is wall-clock, so it ships here.
+    # App-only G-buffer reuse on static frames: bit-identical image. It
+    # stays out of the bench, whose headline counts traced rays and would
+    # under-report a frame that skips its primary sweep (ROADMAP D4).
     os.environ.setdefault("TPU_RT_GB_REUSE", "1")
     cfg = parse_args()
     interactive.run(cfg)

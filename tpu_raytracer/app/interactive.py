@@ -1,4 +1,4 @@
-"""Interactive render loop: the reference app's event loop, TPU edition.
+"""Interactive render loop: the reference app's event loop, headless.
 
 Replicates main.rs / state.rs behavior headlessly (terminal keys instead of
 winit):
@@ -122,11 +122,6 @@ def run(cfg: RenderConfig) -> dict:
     """Run the interactive loop; returns final telemetry."""
     w, h = cfg.width, cfg.height
     scene = load_scene(cfg.scene)
-    # workload-aware gate guard: beyond-VMEM scenes cap a TUNED block
-    # size at the streamed route's own measured optimum (PERF.md r5)
-    from ..ops.pallas_trace import maybe_cap_stream_br
-    maybe_cap_stream_br(scene.tri_planes.shape[2],
-                        instanced=bool(scene.instanced))
     cam = camera_mod.CameraController()
     state = pipeline.init_state(w, h)
     frame_count = 0
@@ -138,33 +133,14 @@ def run(cfg: RenderConfig) -> dict:
 
         devs = jax.devices()
         if len(devs) < cfg.tiles:
-            print(f"--tiles {cfg.tiles} requested but only {len(devs)} "
-                  f"device(s); falling back to single-chip")
-            render_fn = None
-        else:
-            mesh = tiles.make_mesh(devs[:cfg.tiles])
-            render_fn = tiles.make_render_frame_tiled(mesh, w, h, cfg.halo)
-            scene = tiles.replicate(scene, mesh)
-            state = tiles.shard_state(state, mesh)
+            raise ValueError(f"--tiles {cfg.tiles} needs {cfg.tiles} "
+                             f"devices, have {len(devs)}")
+        mesh = tiles.make_mesh(devs[:cfg.tiles])
+        render_fn = tiles.make_render_frame_tiled(mesh, w, h, cfg.halo)
+        scene = tiles.replicate(scene, mesh)
+        state = tiles.shard_state(state, mesh)
     else:
-        render_fn = None
-    if render_fn is None:
-        # Huge single-chip frames (true 4K) cannot be scheduled as ONE
-        # XLA program under jax 0.9 (copy/prefetch temp OOM, PERF.md r4);
-        # render them as sequential row-band programs - bit-identical.
-        bands = pipeline.auto_bands(w, h)
-        if bands > 1:
-            print(f"# {w}x{h} exceeds the one-program budget; rendering "
-                  f"in {bands} sequential row bands", file=sys.stderr)
-
-            def render_fn(scene, camera, fc, state, static_ok=False):
-                return pipeline.render_frame_banded(
-                    scene, camera, fc, state, w, h, bands,
-                    static_ok=static_ok)
-        else:
-            def render_fn(scene, camera, fc, state, static_ok=False):
-                return pipeline.render_frame(scene, camera, fc, state, w, h,
-                                             static_ok=static_ok)
+        render_fn = pipeline.frame_renderer(w, h)
 
     if cfg.checkpoint and os.path.exists(cfg.checkpoint):
         st, frame_count, cam_state = checkpoint.load(cfg.checkpoint)
@@ -286,6 +262,12 @@ def run(cfg: RenderConfig) -> dict:
                          "prev_view_proj": cam.prev_view_proj})
         print(f"checkpointed to {cfg.checkpoint}")
     saver.flush()
+    if total_frames:
+        # one sync at exit: the last frame's health for callers (smoke)
+        img = np.asarray(ldr)
+        telemetry.update(frames=total_frames,
+                         ldr_finite=bool(np.isfinite(img).all()),
+                         ldr_mean=float(img.mean()))
     return telemetry
 
 
@@ -296,10 +278,10 @@ def letterbox(img: np.ndarray, out_w: int, out_h: int,
     h, w = img.shape[:2]
     scale = min(out_w / w, out_h / h)
     nw, nh = int(w * scale), int(h * scale)
-    from PIL import Image
-
-    resized = np.asarray(Image.fromarray(
-        (np.clip(img, 0, 1) * 255).astype(np.uint8)).resize((nw, nh)))
+    # nearest-texel resize (the blit samples one texel per pixel)
+    ys = np.minimum((np.arange(nh) + 0.5) * h / nh, h - 1).astype(int)
+    xs = np.minimum((np.arange(nw) + 0.5) * w / nw, w - 1).astype(int)
+    resized = (np.clip(img, 0, 1)[ys][:, xs] * 255).astype(np.uint8)
     out = np.zeros((out_h, out_w, 3), np.uint8)
     out[:] = (np.asarray(clear) * 255).astype(np.uint8)
     y0 = (out_h - nh) // 2

@@ -1,7 +1,7 @@
 """Live terminal frame display: ANSI truecolor half-block preview.
 
 The reference presents every frame to a window via the blit pass
-(src/state.rs:222, src/passes/blit.rs:112). Headless on a TPU host, the
+(src/state.rs:222, src/passes/blit.rs:112). Headless on an accelerator host, the
 closest faithful analogue is drawing the letterboxed LDR into the
 terminal: each character cell shows two vertical pixels via the upper
 half block (U+2580) with 24-bit foreground (top) and background (bottom)

@@ -3,13 +3,13 @@ written as a self-contained binary .glb.
 
 The reference repo ships no assets either but is *run* against dense
 glTF models (DamagedHelmet ~100k tris, src/scene/scenes.rs:334-347);
-this generator gives the TPU framework an equivalent deterministic
+this generator gives the framework an equivalent deterministic
 workload that exercises the REAL product path - the hand-written glTF
 loader (scene/loader.py), the 1024^2 texture-array policy, normal /
-metallic-roughness texture sampling, and the beyond-VMEM streamed
-intersector - without committing a multi-megabyte binary.
+metallic-roughness texture sampling, and a ~100k-tri intersection -
+without committing a multi-megabyte binary.
 
-Everything is numpy + PIL (PNG encode); the file is generated once on
+Everything is numpy + zlib (utils/png.py); the file is generated once on
 first use and cached under assets/models/.
 """
 
@@ -102,13 +102,9 @@ def knot_mesh(major: int = 420, minor: int = 120, tube_r: float = 0.22):
 # ---------------------------------------------------------------------------
 
 def _png_bytes(arr_u8: np.ndarray) -> bytes:
-    from io import BytesIO
+    from ..utils import png
 
-    from PIL import Image
-
-    bio = BytesIO()
-    Image.fromarray(arr_u8).save(bio, format="PNG")
-    return bio.getvalue()
+    return png.encode(arr_u8)
 
 
 def _texture_set(size: int = 1024):
@@ -247,7 +243,7 @@ def ensure_dense_asset(path: str = DEFAULT_PATH) -> str:
         cached = 0
     if not os.path.exists(path) or cached != ASSET_VERSION:
         write_knot_glb(path)
-        os.makedirs(os.path.dirname(vp), exist_ok=True)
+        os.makedirs(os.path.dirname(vp) or ".", exist_ok=True)
         with open(vp, "w") as f:
             f.write(str(ASSET_VERSION))
     return path

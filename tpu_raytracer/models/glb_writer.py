@@ -8,7 +8,7 @@ hand-written loader (scene/loader.py), texture dedup/remap, normal and
 metallic-roughness sampling - instead of silently falling back to the
 floor+light scene when the (non-redistributable) originals are absent.
 
-Pure numpy + json + struct; PNG bytes come from the caller (PIL).
+Pure numpy + json + struct; PNG bytes from utils/png.py.
 """
 
 from __future__ import annotations
@@ -25,13 +25,9 @@ def _align4(b: bytes, pad: bytes = b"\x00") -> bytes:
 
 def png_bytes(arr_u8: np.ndarray) -> bytes:
     """Encode an [H, W, 3|4] uint8 array as PNG."""
-    from io import BytesIO
+    from ..utils import png
 
-    from PIL import Image
-
-    bio = BytesIO()
-    Image.fromarray(arr_u8).save(bio, format="PNG")
-    return bio.getvalue()
+    return png.encode(arr_u8)
 
 
 def write_glb(path: str, prims, images=(), materials=None,

@@ -343,7 +343,7 @@ def create_dense_knot_scene(path: str = None):
 
     Equivalent role to the reference's DamagedHelmet run
     (scenes.rs:334-347, ~100k tris + full PBR texture set): a
-    beyond-VMEM mesh with base-color / normal / metallic-roughness
+    dense mesh with base-color / normal / metallic-roughness
     textures, loaded through the REAL .glb loader path (the asset is
     generated deterministically on first use - models/dense_asset.py)."""
     from .dense_asset import ensure_dense_asset
@@ -357,13 +357,15 @@ def create_dense_knot_scene(path: str = None):
                          @ scale(1.5)))
 
 
-def create_instancing_gallery_scene(n: int = 100, subdiv: int = 4):
+def create_instancing_gallery_scene(n: int = 100, subdiv: int = 4,
+                                    instancing: str = "on"):
     """Gallery of `n` instances of ONE dense mesh (hsv-tinted grid).
 
     The shared-BLAS showcase (builder.rs:143-189 economics): n instances
-    of a 5k-tri mesh cost ~1x the mesh's triangle/coefficient memory -
-    object-space planes are stored once, each instance adds only a
-    world AABB + inverse affine (scene/builder._build_instanced).
+    of a 5k-tri mesh cost ~1x the mesh's triangle memory - object-space
+    planes are stored once, each instance adds only a world AABB +
+    inverse affine (scene/builder._build_instanced). instancing="off"
+    builds the same world flattened (a ~512k-tri soup).
     """
     b = SceneBuilder()
     plane_id = b.add_mesh(create_plane())
@@ -386,7 +388,7 @@ def create_instancing_gallery_scene(n: int = 100, subdiv: int = 4):
         z = (gz - (side - 1) / 2) * 1.5
         b.add_instance(dense_id, mat,
                        translation([x, -0.5, z]) @ scale(0.5))
-    return b.build(instancing="on")
+    return b.build(instancing=instancing)
 
 
 def create_bunny_scene(subdiv_fallback: int = 4):

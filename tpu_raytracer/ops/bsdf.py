@@ -12,7 +12,7 @@ RNG consumption per lane mirrors the reference exactly (see utils/rng.py):
 glass consumes 1 draw, non-glass consumes 3 (lobe + 2 for VNDF/unit-vector).
 
 Vectors/colors are component-major V3s (utils/vec3): the wavefront never
-materializes [R, 3] arrays (XLA:TPU pads their minor dim 42x - PERF.md r3).
+materializes [R, 3] arrays.
 """
 
 from __future__ import annotations

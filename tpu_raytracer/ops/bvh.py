@@ -1,7 +1,7 @@
-"""BVH construction for the TPU traversal kernel.
+"""BVH construction for the stackless traversal (ops/traversal.py).
 
 The reference delegates acceleration-structure builds to the Vulkan driver
-(src/geometry.rs:35-44, src/scene/builder.rs:143-179,454-468).  On TPU we
+(src/geometry.rs:35-44, src/scene/builder.rs:143-179,454-468). Here we
 build our own. The traversal-time data structure is a **unified DFS stream**
 designed for lock-step SIMD traversal (no stack, no per-lane control flow):
 

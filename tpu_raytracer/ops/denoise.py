@@ -1,7 +1,7 @@
 """Edge-aware a-trous wavelet denoiser: the OIDN screenshot path.
 
 The reference pipes screenshots through Intel OIDN (CPU neural denoiser,
-src/screenshot.rs:69-118, optional `ai-denoise` feature). The TPU-native
+src/screenshot.rs:69-118, optional `ai-denoise` feature). The on-device
 replacement is an SVGF-style edge-aware a-trous wavelet filter guided by
 the G-buffer (albedo/normal/depth), run fully on-device as part of the
 screenshot pass (BASELINE.md config 5):
@@ -17,11 +17,10 @@ Pure jnp roll+mask stencils; runs identically on any backend and shards
 over row bands like the post pass (dilated taps stay within the halo for
 the sizes used at screenshot time; full-frame screenshots run unsharded).
 
-Layout (r3): every stencil runs on per-channel [H, W] PLANES (V3-of-
-planes for colors) - a rank-3 [H, W, 3] intermediate tiles its minor dim
-3 to 128 lanes on TPU (42x HBM traffic), which dominated the 4K
-screenshot time. Inputs de-interleave through ONE tiled transpose each;
-only the final output restacks.
+Layout: every stencil runs on per-channel [H, W] PLANES (V3-of-planes
+for colors) rather than a rank-3 [H, W, 3] intermediate with a minor dim
+of 3. Inputs de-interleave through ONE transpose each; only the final
+output restacks.
 """
 
 from __future__ import annotations
@@ -149,12 +148,11 @@ def atrous_denoise(hdr, albedo, oct_normal, pos, iterations: int = 4):
     return _restack(irr * alb_safe, h, w)
 
 
-# --- sequential row-band form for HUGE frames (true 4K) -------------------
-# jax 0.9's XLA:TPU scheduler OOMs the whole-4K a-trous chain as one
-# program (22 GB of copy/prefetch temps vs 15.75 GB HBM - the same
-# regression class the frame pipeline hit, render/pipeline.py). Each
-# level therefore runs as n_bands sequential band programs; the halo is
-# the level's exact tap reach (2*step), reads come from zero-padded
+# --- sequential row-band form for frames past the band budget ------------
+# Frames that render_frame splits into bands (pipeline.auto_bands) are
+# denoised the same way: each level runs as n_bands sequential band
+# programs; the halo is the level's exact tap reach (2*step), reads come
+# from zero-padded
 # full-res planes, and _filter_level makes banded == whole-frame
 # bit-exact (see its docstring).
 

@@ -1,14 +1,14 @@
-"""Fast table gathers: the MXU as a gather engine.
+"""Table gathers written as one-hot matmuls.
 
-XLA's native gather on TPU costs ~15 ns/row (about 4 ms for a 262k-ray
-G-buffer) and Mosaic's dynamic_gather spans only 128 lanes, so per-ray
-random table lookups are reformulated as ONE-HOT MATMULS:
+Per-ray random table lookups are reformulated as ONE-HOT MATMULS (a
+layout that made row gathers cheap on the accelerator this was first
+tuned for; whether they beat `table[idx]` on the GPU is ROADMAP S3/D5):
 
   * `select_gather`  - tiny tables (materials, lights, mesh infos; M <= 64):
     a plain XLA one-hot [R, M] @ table [M, C] matmul. With the framework's
     "highest" matmul precision this is exact f32 and costs microseconds.
-  * larger tables: a transposed [M, R] one-hot matmul (the MXU does the
-    layout transpose for free) under `hit.fetch_cols`' 2 GB budget.
+  * larger tables: a transposed [M, R] one-hot matmul (the output comes
+    out [C, R], ray axis minor) under `hit.fetch_cols`' 2 GB budget.
 
 Integer columns ride along bitcast to f32 through `pack_table` /
 `int_rows` (bitcasts survive the hi/lo trick only if values fit f32's
@@ -59,13 +59,6 @@ def select_gather_cols(table, idx):
         preferred_element_type=jnp.float32,
         precision=jax.lax.Precision.HIGHEST)           # [C, R]
     return [out[k] for k in range(c)]
-
-
-# The VMEM-resident Pallas one-hot gather (onehot_gather_cols /
-# split_exact3, gated TPU_RT_OHG) was deleted after losing its on-chip
-# A/Bs: 12.37 vs 13.46 Mrays/s alone (r4), 12.97 vs 14.44 under mxuv2
-# (r5) - the [M, R] f32 one-hot in HBM (select_gather_cols) wins at
-# every real table size. Negative result recorded in PERF.md.
 
 
 def pad_table(table: np.ndarray, row_mult: int = 128,

@@ -8,7 +8,7 @@ vector `prev_uv - curr_uv` from reprojection through the previous frame's
 unjittered view-proj (gbuffer.wgsl:227-242).
 
 The reference packs these into 4 storage textures; here they stay SoA f32
-arrays of shape [H*W, ...] - the natural TPU layout (and un-quantized:
+arrays of shape [H*W, ...] (and un-quantized:
 albedo is not crushed to 8 bits).
 """
 

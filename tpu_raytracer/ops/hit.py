@@ -1,9 +1,9 @@
 """Hit-point reconstruction from triangle ids + barycentrics.
 
-TPU equivalent of `reconstruct_geometry_hit` (restir.wgsl:383-441) and the
+JAX equivalent of `reconstruct_geometry_hit` (restir.wgsl:383-441) and the
 G-buffer hit processing (gbuffer.wgsl:124-174). Instead of chasing the
 reference's index -> attribute -> instance indirection with many narrow
-gathers (each costs ~4 ms at 262k rays on TPU), the scene compile bakes ONE
+gathers, the scene compile bakes ONE
 wide per-triangle shading row (scene.tri_table, world-space, unnormalized
 per-vertex normals/tangents so normalize-after-interpolate matches the
 reference's transform order exactly) and this pass does a single row gather
@@ -11,8 +11,8 @@ plus pure VPU interpolation.
 
 All vector math runs on component-major V3s (utils/vec3): the only wide
 arrays are the gathered rows themselves; every column is sliced to a dense
-[R] immediately, so no [R, 3] row-major intermediate (42x lane padding on
-TPU) is ever materialized (PERF.md r3).
+[R] immediately, so no [R, 3] row-major intermediate is ever
+materialized.
 
 Materials gather through `select_gather_cols` (exact one-hot matmul,
 transposed so the output is [C, R] with a dense ray minor dim) for small
@@ -37,18 +37,12 @@ ONEHOT_BUDGET_BYTES = 1 << 31
 def fetch_cols(table, idx):
     """Winner-row fetch: table [M, C], idx [R] -> list of C dense [R]s.
 
-    Small/mid tables ride the MXU: a transposed one-hot matmul emits
-    [C, R] with the ray axis minor, so every component is a free dense
-    slice (vs 7.2 ms for gather + XLA column slices at 262k rays x 1.3k
-    rows - the column slices are a T(8,128) -> T(1024) layout transpose
-    XLA lowers poorly; scripts/ucb_cols.py). Tables too large fall back
-    to the native row gather plus ONE tiled transpose, keeping the
-    major-dim slices free.
-
-    A VMEM-resident Pallas one-hot variant (TPU_RT_OHG) was built and
-    measured in r4/r5 and LOSES to this HBM f32 one-hot at real table
-    sizes (12.37 vs 13.46 alone; 12.97 vs 14.44 under mxuv2) - deleted,
-    negative result recorded in PERF.md."""
+    Small/mid tables use a transposed one-hot matmul that emits [C, R]
+    with the ray axis minor, so every component is a free dense slice.
+    It is exact only at "highest" matmul precision (no TF32; the package
+    sets it). Tables too large fall back to the native row gather plus
+    ONE transpose, keeping the major-dim slices free. Whether the one-hot
+    form beats `table[idx]` on the GPU is ROADMAP S3."""
     m, c = table.shape
     r = idx.shape[0]
     if m * r * 4 <= ONEHOT_BUDGET_BYTES:
@@ -163,8 +157,8 @@ def reconstruct_hit(scene, tri_id, ray_o, ray_d, t, inst_id=None):
     qvec = vec3.cross(tvec, e1)
     v = vec3.dot(ray_d, qvec) * inv_det
     front = det > 0.0
-    # exact t: the MXU intersector's ordering t carries ~2^-16 relative
-    # error; positions/MIS distances use the exact f32 value instead.
+    # t recomputed from the fetched row, so positions and MIS distances
+    # do not depend on which intersector produced the hit.
     t = jnp.where(det_ok, vec3.dot(e2, qvec) * inv_det, t)
 
     w = 1.0 - u - v

@@ -7,6 +7,11 @@ restir.wgsl:601-607) with explicit math:
 
 All functions are batched: rays [..., 3], triangles broadcastable against
 rays. Misses are reported as ``t = inf``.
+
+Also here: the packed triangle layout the swept intersectors read
+(`pack_triangles`, `pack_triangles_instanced`): 4 planes of shape
+[3, Tp] - v0, e1, e2 and a validity row (1.0 real, 0.0 padding) - with
+Tp padded to a multiple of CT so every chunk is whole.
 """
 
 from __future__ import annotations
@@ -16,6 +21,45 @@ import numpy as np
 
 INF = np.float32(3.0e38)
 _MT_EPS = 1e-9
+CT = 128        # triangle padding granule of the packed planes
+INST_GRP = 2    # CT-chunks per (instance, group) unit of the instanced scan
+
+
+def _planes(v0, e1, e2, tp):
+    t = v0.shape[0]
+    planes = np.zeros((4, 3, tp), np.float32)
+    planes[0, :, :t] = v0.T
+    planes[1, :, :t] = e1.T
+    planes[2, :, :t] = e2.T
+    planes[3, 0, :t] = 1.0
+    return planes
+
+
+def pack_triangles(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray):
+    """[T, 3] v0 / e1 / e2 -> tri_planes [4, 3, Tp], Tp = T padded to CT
+    (at least one chunk). Padding triangles are all-zero: det 0, invalid."""
+    t = v0.shape[0]
+    return _planes(v0, e1, e2, max(-(-t // CT) * CT, CT))
+
+
+def pack_triangles_instanced(mesh_tris, grp: int = INST_GRP):
+    """Per-mesh object-space packing for the two-level instanced scan.
+
+    mesh_tris: list of (v0 [t,3], e1, e2) per mesh. Each mesh is padded to
+    a multiple of grp*CT triangles so no (instance, group) unit spans two
+    meshes. Returns (planes [4, 3, TpO], spans [2, NMesh] i32 = (first
+    group, group count) per mesh).
+    """
+    unit = grp * CT
+    planes_list, spans = [], []
+    g0 = 0
+    for v0, e1, e2 in mesh_tris:
+        tp = max(-(-v0.shape[0] // unit) * unit, unit)
+        planes_list.append(_planes(v0, e1, e2, tp))
+        spans.append((g0, tp // unit))
+        g0 += tp // unit
+    return (np.concatenate(planes_list, axis=2),
+            np.asarray(spans, np.int32).T)
 
 
 def moller_trumbore(ray_o, ray_d, v0, e1, e2, t_min, t_max):

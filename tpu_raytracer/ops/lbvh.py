@@ -1,19 +1,18 @@
 """On-device LBVH: Morton codes + sort + Karras hierarchy + AABB build.
 
 The driver-side acceleration-structure build the reference relies on
-(builder.rs:143-179) has two TPU-native replacements here:
+(builder.rs:143-179) has two JAX replacements here:
 
   * host binned-SAH (ops/bvh.py) - highest quality, used at scene compile;
   * this module - a fully jitted linear BVH for DYNAMIC geometry: 30-bit
-    Morton codes over triangle centroids, `jnp.sort` (XLA's radix sort on
-    TPU), Karras 2012 internal-node construction (each node finds its
+    Morton codes over triangle centroids, `jnp.sort`, Karras 2012 internal-node construction (each node finds its
     range/split by vectorized binary searches over common-prefix lengths),
     and a level-swept bottom-up AABB pass.
 
-`morton_reorder` applies the Morton order to the brute-force intersector's
-triangle stream + chunk AABBs - the on-device retopology path that keeps
-chunk culling coherent after large deformations (the refit path,
-ops/refit.py, covers rigid instance motion exactly).
+`morton_reorder` applies the Morton order to the intersector's triangle
+stream - the on-device retopology path that restores spatial coherence
+after large deformations (the refit path, ops/refit.py, covers rigid
+instance motion exactly).
 """
 
 from __future__ import annotations
@@ -161,15 +160,12 @@ def build_lbvh(aabb_min, aabb_max):
 
 
 def morton_reorder(scene):
-    """On-device dynamic retopology for the brute-force intersector: re-sort
-    the triangle stream by Morton code and recompute chunk AABBs. Returns
-    the new CompiledScene (shading tables and metadata follow the order)."""
+    """On-device dynamic retopology: re-sort the triangle stream by Morton
+    code. Returns the new CompiledScene (shading tables and metadata
+    follow the order)."""
     import dataclasses
 
-    from .pallas_trace import CT, mt_coef48
-
     t = scene.num_triangles
-    tp = scene.tri_planes.shape[2]
     v0 = scene.tri_planes[0, :, :t].T
     e1 = scene.tri_planes[1, :, :t].T
     e2 = scene.tri_planes[2, :, :t].T
@@ -186,14 +182,6 @@ def morton_reorder(scene):
     planes = planes.at[1, :, :t].set(e1[order].T)
     planes = planes.at[2, :, :t].set(e2[order].T)
 
-    pad = tp - t
-    big = jnp.float32(3.0e38)
-    mn_p = jnp.concatenate([mn[order], jnp.full((pad, 3), big)], axis=0)
-    mx_p = jnp.concatenate([mx[order], jnp.full((pad, 3), -big)], axis=0)
-    chunk_aabb = scene.chunk_aabb
-    chunk_aabb = chunk_aabb.at[:, 0:3].set(mn_p.reshape(-1, CT, 3).min(axis=1))
-    chunk_aabb = chunk_aabb.at[:, 3:6].set(mx_p.reshape(-1, CT, 3).max(axis=1))
-
     # keep the unified-stream BVH consistent with the new triangle ids:
     # leaf-tri rows reference tri ids (bvh_tri) and refit scatters by
     # tri -> row (bvh_tri_rows); both must follow the permutation.
@@ -205,9 +193,6 @@ def morton_reorder(scene):
     return dataclasses.replace(
         scene,
         tri_planes=planes,
-        coef48=(mt_coef48(planes, scene.coef48_grp) if scene.coef48_grp
-                else scene.coef48),
-        chunk_aabb=chunk_aabb,
         tri_table=scene.tri_table[order],
         tri_table_local=scene.tri_table_local[order],
         tri_inst=scene.tri_inst[order],

@@ -1,4 +1,4 @@
-"""Wavefront path tracer: the TPU replacement for the per-thread megakernel.
+"""Wavefront path tracer: the JAX replacement for the per-thread megakernel.
 
 Faithful vectorized port of `trace_path` (restir.wgsl:460-737 /
 restir_spatial.wgsl:480-762): starts from the G-buffer hit (depth 0),
@@ -12,11 +12,9 @@ lanes skip traversal via the traversal kernel's `active` fast path. The
 bounce loop is a single `lax.while_loop` body (compiled once).
 
 The wavefront is COMPONENT-MAJOR (utils/vec3): positions, directions,
-colors and throughput are V3s of dense [R] arrays - a materialized
-row-major [R, 3] f32 intermediate costs 42x its useful HBM traffic on TPU
-(T(8,128) pads the minor dim to 128 lanes) and the per-bounce shading glue
-was most of the frame (PERF.md r3). [R, 3] arrays appear only at the
-module boundary (the G-buffer dict in, radiance/v1 out).
+colors and throughput are V3s of dense [R] arrays, never a row-major
+[R, 3] intermediate with a minor dim of 3. [R, 3] arrays appear only at
+the module boundary (the G-buffer dict in, radiance/v1 out).
 
 Reference quirks intentionally preserved (they define the target radiance):
   * the bounce loop's `is_specular` reuses the *primary* surface's glass
@@ -54,9 +52,8 @@ def _nee_draw(scene, state, active, pos, ffnormal, wo, mat, base_color,
     (restir.wgsl:554-575 / 702-724): consumes up to 3 draws per active
     lane (light pick + 2 area sample) and returns the shadow ray + the
     untested contribution, so the caller can BATCH the shadow trace with
-    the next bounce trace in one traversal call (each Pallas sweep
-    carries a fixed ~3.5 ms floor at 512^2 - halving the call count per
-    depth is worth more than any per-test optimization; PERF.md).
+    the next bounce trace in one traversal call (half the trace calls
+    per depth; each call carries a fixed cost).
 
     Returns (state, ray, pre): ray = dict(origin V3, dir V3, t_max [R],
     active [R]); pre = dict(contrib V3, shadow_active [R], n_rays).
@@ -120,8 +117,7 @@ def _cat3(a: V3, b: V3) -> V3:
     return V3(_cat(a.x, b.x), _cat(a.y, b.y), _cat(a.z, b.z))
 
 
-def _dual_trace(scene, s_ray, b_origin, b_dir, b_active, num_lights,
-                reorder="none"):
+def _dual_trace(scene, s_ray, b_origin, b_dir, b_active, num_lights):
     """ONE traversal call for [this depth's NEE shadow rays | the next
     depth's bounce rays] - closest-hit for both (a windowed closest hit
     answers occlusion exactly). Origins/dirs are V3 component tuples all
@@ -131,32 +127,18 @@ def _dual_trace(scene, s_ray, b_origin, b_dir, b_active, num_lights,
     r = b_active.shape[0]
     if num_lights == 0:
         res = scene_trace(scene, b_origin, b_dir, T_MIN, T_MAX,
-                          active=b_active, reorder=reorder)
+                          active=b_active)
         return jnp.zeros((r,), jnp.bool_), res
-    if r > 4 * 1024 * 1024:
-        # HUGE frames (4K): the 2R-wide batched call's prepass
-        # intermediates (~2.5 GB) OOM HBM - fall back to two sequential
-        # calls (identical per-ray results; the batching is purely a
-        # call-overhead optimization)
-        from .trace_api import scene_occluded
-
-        blocked = scene_occluded(scene, s_ray["origin"], s_ray["dir"],
-                                 T_MIN, s_ray["t_max"],
-                                 active=s_ray["active"], reorder=reorder)
-        res = scene_trace(scene, b_origin, b_dir, T_MIN, T_MAX,
-                          active=b_active, reorder=reorder)
-        return blocked, res
     o = _cat3(s_ray["origin"], b_origin)
     d = _cat3(s_ray["dir"], b_dir)
     t_max = _cat(s_ray["t_max"], jnp.full((r,), T_MAX, jnp.float32))
     act = _cat(s_ray["active"], b_active)
-    res = scene_trace(scene, o, d, T_MIN, t_max, active=act,
-                      reorder=reorder)
+    res = scene_trace(scene, o, d, T_MIN, t_max, active=act)
     blocked = res["tri"][:r] >= 0
     return blocked, {k: v[r:] for k, v in res.items()}
 
 
-def trace_path(scene, gb, view_pos, seed, active=None, reorder="none"):
+def trace_path(scene, gb, view_pos, seed, active=None):
     """Trace one candidate path per lane from the G-buffer surface.
 
     Args:
@@ -167,8 +149,6 @@ def trace_path(scene, gb, view_pos, seed, active=None, reorder="none"):
       seed: [R] uint32 path seeds (ReSTIR reservoir `y`).
       active: optional [R] bool - lanes to trace (ANDed with gb validity);
         masked lanes return zeros (replay-dedup lanes skip the trace).
-      reorder: ray-stream permutation mode for every traversal this path
-        spawns (see ops/compaction.py).
 
     Returns dict: radiance [R,3], valid_v1 [R] bool, v1_pos [R,3],
     v1_normal [R,3] (the reconnection vertex for shift mapping,
@@ -251,8 +231,7 @@ def trace_path(scene, gb, view_pos, seed, active=None, reorder="none"):
     offset_dir0 = ffnormal * jnp.sign(vec3.dot(ffnormal, next_dir))
     origin_b = pos + offset_dir0 * 1e-3
     blocked0, res_pending = _dual_trace(
-        scene, s_ray, origin_b, next_dir, active, num_lights,
-        reorder=reorder)
+        scene, s_ray, origin_b, next_dir, active, num_lights)
     accumulated = accumulated + vec3.where(
         nee_mask, _nee_apply(s_pre, blocked0), 0.0) * thr_pre
 
@@ -400,7 +379,7 @@ def trace_path(scene, gb, view_pos, seed, active=None, reorder="none"):
 
         def _trace_dual(_):
             blocked, res = _dual_trace(scene, s_ray, origin_n, sc["wi"],
-                                       active, num_lights, reorder=reorder)
+                                       active, num_lights)
             out = {"t": res["t"], "tri": res["tri"]}
             if scene.instanced:
                 out["inst"] = res["inst"]
@@ -414,7 +393,7 @@ def trace_path(scene, gb, view_pos, seed, active=None, reorder="none"):
 
                 blocked = scene_occluded(
                     scene, s_ray["origin"], s_ray["dir"], T_MIN,
-                    s_ray["t_max"], active=s_ray["active"], reorder=reorder)
+                    s_ray["t_max"], active=s_ray["active"])
             res = {"t": jnp.zeros((r,), jnp.float32),
                    "tri": jnp.full((r,), -1, jnp.int32)}
             if scene.instanced:

@@ -5,7 +5,7 @@ Vectorized port of post.wgsl:61-282:
   - 5x5 joint bilateral over the HDR input, weighted by spatial Gaussian
     (sigma 1.5), albedo similarity (sigma 0.2), normal^20, position
     (sigma 0.1) (post.wgsl:85-141); stencils are roll+mask sums over
-    image-shaped arrays - no gathers on TPU.
+    image-shaped arrays - no gathers.
   - 3x3 variance clipping statistics in YCoCg of reversibly-tonemapped
     color, gamma 1.2 (post.wgsl:143-177).
   - history reprojection through per-pixel motion vectors with manual
@@ -17,14 +17,13 @@ Vectorized port of post.wgsl:61-282:
   - inverse tonemap back to linear HDR for the accumulation buffer;
     gamma-2.2 encode for display (post.wgsl:269-281).
 
-All neighbor reads run on BandViews (parallel/views.py): single-chip uses
+All neighbor reads run on BandViews (parallel/views.py): one device uses
 the trivial full-image view; the sharded path feeds ppermute-halo-extended
 bands (stencils need halo >= 2; history reprojection uses the full halo).
 
-The whole pass runs on per-channel [band_h, W] PLANES (r3): a rank-3
-[band_h, W, 3] intermediate tiles its minor dim 3 to 128 lanes on TPU
-(42x HBM traffic), so the packed view data is de-interleaved by ONE
-tiled transpose up front and every stencil tap / blend operates on dense
+The whole pass runs on per-channel [band_h, W] PLANES rather than a
+rank-3 [band_h, W, 3] intermediate with a minor dim of 3: the packed
+view data is de-interleaved by ONE transpose up front and every stencil tap / blend operates on dense
 2D planes (V3-of-planes for colors), restacking only the two flat
 outputs.
 
@@ -104,7 +103,7 @@ class _PlaneStencil:
 
     Planes come from ONE tiled transpose of the BandView's packed rows;
     each tap is a roll + center slice of dense 2D planes. Wraps from
-    jnp.roll are masked by global image bounds (single chip) or always
+    jnp.roll are masked by global image bounds (one device) or always
     land outside the sliced center when halo >= |offset| (sharded bands).
     """
 
@@ -244,8 +243,7 @@ def post_process(hdr_view, gb, gb_view, history_view, frame_count, ctx):
     else:
         def hist_tap2(yy, xx):
             # both x-neighbors of the bilinear footprint in ONE gather
-            # (adjacent flat rows; TPU gathers cost per visited ROW -
-            # BandView.read_cols_x2, PERF.md)
+            # (adjacent flat rows; BandView.read_cols_x2)
             c0, c1, ok0, ok1 = history_view.read_cols_x2(
                 yy.reshape(-1), xx.reshape(-1))
             return _shape_tap(c0, ok0), _shape_tap(c1, ok1)

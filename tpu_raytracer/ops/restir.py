@@ -11,12 +11,12 @@ read/write flow) become pure dataflow: temporal consumes last frame's
 spatial output and returns a fresh reservoir set.
 
 All neighbor-pixel reads (temporal reprojection, spatial disk taps) go
-through `BandView`s (parallel/views.py), so the same code runs single-chip
+through `BandView`s (parallel/views.py), so the same code runs on one device
 and row-band-sharded across a device mesh with ppermute halo exchange;
 reads beyond the halo simply drop reuse for that lane.
 
 Vector fields (s_path, rad) live as component-major V3s inside the pass
-(utils/vec3 - [R, 3] row-major intermediates pad 42x on TPU); the packed
+(utils/vec3 - no [R, 3] row-major intermediates); the packed
 [N, 12] reservoir rows remain the storage/gather format.
 
 RNG streams: candidate seeds come from `pcg_hash(pixel + frame * 927163)`
@@ -58,19 +58,13 @@ def _gb_head(comb_c):
     )
 
 
-def make_ctx(width: int, height: int, y0=0, band_h=None,
-             reorder: str = "none") -> dict:
-    """`reorder` is the ray-stream permutation mode (ops/compaction.py)
-    applied to every secondary trace - static per compiled pipeline.
-    Default "none": measured on v5e, the permutation's two wide-row
-    gathers + scatter (~13 ms @ 262k rays) cost more than masked dead
-    lanes already save via per-block worklist shrinkage (PERF.md)."""
+def make_ctx(width: int, height: int, y0=0, band_h=None) -> dict:
+    """Per-band frame context: band origin row and static frame size."""
     return {
         "y0": jnp.asarray(y0, jnp.int32),
         "width": width,
         "height": height,
         "band_h": height if band_h is None else band_h,
-        "reorder": reorder,
     }
 
 
@@ -93,7 +87,8 @@ def empty_reservoirs(n: int) -> dict:
         "W": z,
         "p_hat": z,
         "s_path": V3(z, z, z),
-        # Replay-dedup cache (TPU addition; radiance semantics unchanged):
+        # Replay-dedup cache (not in the reference; radiance semantics
+        # unchanged):
         # `rad` is the full RGB radiance of seed `y` as traced from THIS
         # pixel's surface; `rad_ok` marks it valid for the current frame's
         # final replay (restir_spatial.wgsl:996) - tracing is skipped for
@@ -178,11 +173,11 @@ def _is_valid_neighbor_temporal(curr_pos, curr_normal, curr_mat,
 
 def _mat_rmt(scene, mid):
     """[R] material ids -> (roughness, metallic, transmission) dense [R]s
-    in ONE fetch. Three separate per-field gathers cost ~15 ns/row EACH
-    on TPU (PERF.md) - and the spatial tap scan used to re-fetch them on
-    every tap. Routed through hit.fetch_cols, which picks the exact
-    one-hot matmul for small tables and falls back to a single native
-    row gather past the one-hot HBM budget (huge material counts)."""
+    in ONE fetch instead of three per-field gathers (the spatial tap scan
+    used to re-fetch them on every tap). Routed through hit.fetch_cols,
+    which picks the exact one-hot matmul for small tables and falls back
+    to a single native row gather past the one-hot memory budget (huge
+    material counts)."""
     from .hit import fetch_cols
 
     table = jnp.stack([scene.materials["roughness"],
@@ -227,7 +222,7 @@ def restir_temporal(scene, gb, prev_view, camera,
 
     prev_view: BandView over last frame's CONCATENATED packed G-buffer +
     spatial reservoirs [.., GB_COLS + RES_COLS] - the reprojection tap
-    reads both with ONE wide-row gather (~4 ms each at 262k on v5e).
+    reads both with ONE wide-row gather.
 
     static_ok: traced bool - caller asserts NOTHING changed since last
     frame (camera, scene geometry, materials, lights). Enables carrying
@@ -248,8 +243,7 @@ def restir_temporal(scene, gb, prev_view, camera,
 
     # Phase 1: candidate path (restir.wgsl:826-841)
     pr = path_trace.trace_path(scene, gb, camera["view_pos"][:3],
-                               seed_candidate,
-                               reorder=ctx.get("reorder", "none"))
+                               seed_candidate)
     pr_rad = vec3.of(pr["radiance"])
     p_hat = vec3.luminance(pr_rad)
     # candidate cache is valid unconditionally: the final replay traces
@@ -416,13 +410,9 @@ def restir_spatial(scene, gb, comb_view, in_reservoirs, camera,
     # per-sample noise realization differs from the reference stream.
     # ctx["tap_batch"]=False keeps the reference-exact sequential order.
     #
-    # DEFAULT OFF (measured, v5e 512^2 Cornell): batched 7.71 Mrays/s vs
-    # sequential 8.15 - the one 5R-wide call saves less than its stacked
-    # [5, R, ...] tap materialization + interleave transposes cost,
-    # because the sequential taps' five any-hit calls are already cheap
-    # (~31 ms for the whole tap block incl. gathers; the per-call floor
-    # the batching targets shrank in r2's major-dim feat fix). Kept as a
-    # knob: scenes with expensive occlusion (dense geometry) may flip.
+    # DEFAULT OFF: one 5R-wide call against five R-wide ones, with a
+    # stacked [5, R, ...] tap materialization on top; not measured on the
+    # GPU yet (ROADMAP D4).
     import os
 
     tap_batch = ctx.get(
@@ -496,7 +486,7 @@ def restir_spatial(scene, gb, comb_view, in_reservoirs, camera,
                 inter(taps["dir"].z))
         blocked5 = scene_occluded(
             scene, o5, d5, 1e-3, inter(taps["t_max"]),
-            active=act5, reorder=ctx.get("reorder", "none"))
+            active=act5)
         blocked = jnp.swapaxes(blocked5.reshape(r_lanes, 5), 0, 1)  # [5, R]
         ray_count = jnp.sum(act5.astype(jnp.float32))
 
@@ -560,8 +550,7 @@ def restir_spatial(scene, gb, comb_view, in_reservoirs, camera,
         ray_count = ray_count + jnp.sum(shadow_active.astype(jnp.float32))
         blocked = scene_occluded(
             scene, pos, dir_to_v1 / jnp.maximum(dist_to_v1, 1e-12),
-            1e-3, jnp.maximum(dist_to_v1 * 0.999, 0.0), active=shadow_active,
-            reorder=ctx.get("reorder", "none"))
+            1e-3, jnp.maximum(dist_to_v1 * 0.999, 0.0), active=shadow_active)
         ok = shadow_active & ~blocked
 
         p_hat_corr = nb_phat * jac
@@ -592,8 +581,7 @@ def _spatial_finalize(scene, gb, res, camera_pos, valid, ray_count, ctx):
     lanes cost ~nothing in the blocked intersector (dead-block skip)."""
     cached = res["rad_ok"]
     final = path_trace.trace_path(scene, gb, camera_pos, res["y"],
-                                  active=~cached,
-                                  reorder=ctx.get("reorder", "none"))
+                                  active=~cached)
     radiance = vec3.where(cached, res["rad"], vec3.of(final["radiance"]))
     p_hat_final = vec3.luminance(radiance)
     res["s_path"] = vec3.where(cached, res["s_path"],

@@ -20,8 +20,8 @@ from ..utils import vec3
 def pack_pairs(tex):
     """[L, H, W, 3] -> [L, H, W, 12]: each row stores the full bilinear
     2x2 quad (x,y), (x+1,y), (x,y+1), (x+1,y+1) with wrap addressing, so a
-    bilinear sample is ONE row gather. Costs 4x texture memory: TPU gather
-    cost is ~15 ns/row regardless of width, so row count is everything."""
+    bilinear sample is ONE row gather. Costs 4x texture memory to cut
+    the gathered row count by 4."""
     right = jnp.roll(tex, -1, axis=2)
     down = jnp.roll(tex, -1, axis=1)
     down_right = jnp.roll(down, -1, axis=2)

@@ -1,18 +1,21 @@
 """Screen-tile data parallelism: the device-mesh render pipeline.
 
-The pixel grid is sharded across chips as horizontal row bands over a 1-D
-`jax.sharding.Mesh` axis ("tiles"), the TPU-native replacement for the
-reference's single-GPU thread grid (SURVEY.md §2.3):
+The pixel grid is sharded across devices as horizontal row bands over a
+1-D `jax.sharding.Mesh` axis ("tiles"), the multi-device extension of
+the reference's single-GPU thread grid (SURVEY.md §2.3). The mesh follows
+the algorithm alone: on GPUs joined all to all by NVLink it needs no
+shape beyond a line of devices.
 
   * scene data (BVH/triangles, materials, lights, textures) is REPLICATED -
-    scenes are tiny next to HBM;
+    scenes are tiny next to device memory;
   * per-pixel state (G-buffer, reservoirs, accumulation) lives sharded on
-    its owning chip for the whole frame - zero cross-chip traffic except:
+    its owning device for the whole frame - zero cross-device traffic
+    except:
   * neighbor-dependent passes (temporal reprojection, spatial ReSTIR disk
     taps, post stencils, history bilinear) read through ppermute-halo
-    BandViews over ICI (parallel/views.py) - the ring-exchange analogue of
+    BandViews (parallel/views.py) - the ring-exchange analogue of
     sequence/context parallelism;
-  * the final LDR frame is gathered with an all_gather over ICI only for
+  * the final LDR frame is gathered with an all_gather only for
     display/PNG (the reference's swapchain present / readback,
     state.rs:226-268).
 
@@ -60,13 +63,13 @@ def replicate(tree, mesh: Mesh):
 
 def make_render_frame_tiled(mesh: Mesh, width: int, height: int,
                             halo: int = DEFAULT_HALO):
-    """Build the jitted multi-chip frame function for a fixed resolution.
+    """Build the jitted multi-device frame function for a fixed resolution.
 
     Returns f(scene, camera, frame_count, state, static_ok=False) ->
     (ldr_full, hdr_full, new_state, aux) - the same shape as
     pipeline.render_frame so the app can swap pipelines freely: `state`
-    stays band-sharded across frames; ldr/hdr are replicated (all_gather
-    over ICI) for display/screenshots; aux["rays"] is the mesh-wide
+    stays band-sharded across frames; ldr/hdr are replicated (all_gather)
+    for display/screenshots; aux["rays"] is the mesh-wide
     traversal-query count (psum).
     """
     n_dev = mesh.devices.size
@@ -94,7 +97,7 @@ def make_render_frame_tiled(mesh: Mesh, width: int, height: int,
         ldr, hdr, new_state, aux = pipeline_mod.render_band(
             scene, camera, frame_count, state, ctx, make_view,
             static_ok=static_ok)
-        # display gather over ICI (only LDR + HDR leave the owning chip)
+        # display gather (only LDR + HDR leave the owning device)
         ldr_full = jax.lax.all_gather(ldr, AXIS, axis=0).reshape(-1, 3)
         hdr_full = jax.lax.all_gather(hdr, AXIS, axis=0).reshape(-1, 3)
         aux = {"rays": jax.lax.psum(aux["rays"], AXIS)}

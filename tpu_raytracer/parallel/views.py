@@ -1,5 +1,5 @@
 """Band/halo views: the addressing layer that makes every render op work
-identically on one chip or on a row-band-sharded device mesh.
+identically on one device or on a row-band-sharded device mesh.
 
 The screen is sharded across devices as horizontal row bands (row-major
 flat arrays split on the leading axis = contiguous bands). Ops that read
@@ -8,7 +8,7 @@ history bilinear taps) read through a `BandView`: a flat array covering
 rows [y0 - halo, y0 + band_h + halo) of the full image plus the global
 geometry needed to mask out-of-coverage reads.
 
-Single-chip is the trivial view (y0 = 0, halo = 0, band = full height), so
+One device is the trivial view (y0 = 0, halo = 0, band = full height), so
 there is exactly ONE implementation of every pass. Out-of-halo reads (e.g.
 reprojection farther than the halo under fast motion) are reported invalid
 and the caller drops reuse for that lane - the documented halo-clamp
@@ -33,13 +33,10 @@ def _transpose_cols(rows):
 def _gather_cols(data, idx):
     """rows data[idx] de-interleaved: list of C dense [R] columns.
 
-    Default: one native row gather + ONE tiled [R, C] -> [C, R] transpose
-    (measured best of three on v5e, scripts/ucb_cols.py). Under
-    TPU_RT_GATHER_T=1 the gather is asked for a COLUMN-MAJOR output
-    directly (offset dims placed before the batch dim) - bit-identical,
-    and whether XLA:TPU lowers it better than the explicit transpose is
-    an open on-chip A/B (the transpose alone was ~5.8 ms per 35-col
-    fetch at 262k rows)."""
+    Default: one native row gather + ONE [R, C] -> [C, R] transpose.
+    Under TPU_RT_GATHER_T=1 the gather is asked for a COLUMN-MAJOR output
+    directly (offset dims placed before the batch dim) - bit-identical;
+    which is faster on the GPU is not measured yet (ROADMAP D3)."""
     import os
 
     c = data.shape[-1]
@@ -97,10 +94,9 @@ class BandView:
     def read_cols(self, gy, gx):
         """`read`, de-interleaved: (list of C dense [R] columns, valid).
 
-        One tiled [R, C] -> [C, R] transpose after the gather, then free
-        major-dim slices - cheaper than per-column slices of the row-major
-        gather result, which XLA lowers as a T(8,128) -> T(1024) layout
-        transpose ~10x below HBM bandwidth (scripts/ucb_cols.py)."""
+        One [R, C] -> [C, R] transpose after the gather, then free
+        major-dim slices instead of per-column slices of the row-major
+        gather result."""
         idx, valid = _band_index(self, gy, gx)
         return _gather_cols(self.data, idx), valid
 
@@ -111,16 +107,10 @@ class BandView:
         Horizontally-adjacent texels are adjacent flat rows; a pair-packed
         copy of the view ([self | x+1] rows, one dense roll + concat)
         turns the x-pair into ONE single-row gather where two `read_cols`
-        calls visit two rows - and TPU gathers cost ~15 ns per visited row
-        regardless of width (PERF.md). This is the bilinear history read's
-        x-pair (post.wgsl:180-228 analogue) at half price.
-
-        r4 toolchain note: the original formulation asked the gather
-        itself for the pair (slice_sizes=(2, C)); jax 0.9's XLA:TPU
-        lowers any multi-ROW slice gather as a SERIAL per-lane while loop
-        (~1.3 us/lane - 340 ms per call at 512^2, 2.6x the whole rest of
-        the frame; PERF.md r4). Only single-row slices lower natively, so
-        the packing moved into a dense pre-pass.
+        calls visit two rows. This is the bilinear history read's x-pair
+        (post.wgsl:180-228 analogue) with half the visited rows. The
+        packing is a dense pre-pass rather than a multi-row slice gather
+        (slice_sizes=(2, C)), which XLA may lower as a per-lane loop.
 
         Returns (cols0, cols1, valid0, valid1). Edge semantics match two
         independent reads exactly: the 2-texel window anchors at
@@ -219,7 +209,7 @@ class BandView:
 
 
 def trivial_view(flat, width: int, height: int) -> BandView:
-    """Single-chip view: the full image, no halo."""
+    """One-device view: the full image, no halo."""
     return BandView(data=flat, y0=jnp.int32(0), width=width, height=height,
                     band_h=height, halo=0)
 
@@ -233,9 +223,9 @@ class PairBandView:
 
     Equivalent to a BandView over `concatenate([a, b], -1)` WITHOUT
     materializing the concatenation - at 4K the combined
-    G-buffer+reservoir copies alone are ~6 GB of HBM, which OOMs the
-    frame; per-tap this costs a second row gather instead
-    (~15 ns/row x taps, the right trade only for huge frames)."""
+    G-buffer+reservoir copies alone are ~6 GB of device memory; per tap
+    this costs a second row gather instead (the right trade only for
+    huge frames, pipeline._LAZY_VIEW_RAYS)."""
     a: jax.Array
     b: jax.Array
     y0: jax.Array
@@ -265,7 +255,7 @@ def halo_exchange(flat_local, width: int, band_h: int, halo: int,
     """Build a BandView from a band-local flat array inside shard_map.
 
     Exchanges `halo` boundary rows with the neighboring devices on the
-    `axis_name` mesh axis via two `ppermute` shifts over ICI (the ring/halo
+    `axis_name` mesh axis via two `ppermute` shifts (the ring/halo
     pattern standing in for sequence parallelism; SURVEY.md §2.3). Edge
     devices receive zeros - masked out by BandView coverage checks anyway.
     """

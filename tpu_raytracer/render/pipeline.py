@@ -1,6 +1,6 @@
 """Full ReSTIR frame pipeline: the flagship render path.
 
-TPU re-architecture of the reference's five-pass frame
+JAX re-architecture of the reference's five-pass frame
 (src/renderer.rs:399-515):
 
     G-buffer -> ReSTIR temporal -> ReSTIR spatial(+shade) -> post -> LDR
@@ -11,7 +11,7 @@ The whole frame is ONE jitted, donated function over a functional
 The blit/letterbox raster pass (blit.wgsl) is display plumbing; its
 aspect-correct scaling lives in app/display helpers instead.
 
-Single-chip here; the row-band device-mesh version with ppermute halo
+Single-device here; the row-band device-mesh version with ppermute halo
 exchange shares every pass implementation via BandViews - see
 parallel/tiles.py.
 """
@@ -60,9 +60,8 @@ def _gb_for_band(scene, camera, prev_gb_rows, ctx, static_ok):
         return gbuffer_ops.unpack_gb(prev_gb_rows)
 
     # OPT-IN (TPU_RT_GB_REUSE=1, trace-time): the reuse branch replaces
-    # a primary sweep + hit-attribute fetch with an unpack whose
-    # per-column slices are themselves layout transposes (PERF.md) -
-    # net win unmeasured on-chip, so the default stays compute-always.
+    # a primary sweep + hit-attribute fetch with an unpack - net win not
+    # measured on the GPU, so the default stays compute-always.
     import os
     if os.environ.get("TPU_RT_GB_REUSE", "0") != "1" \
             or (isinstance(static_ok, bool) and not static_ok):
@@ -74,20 +73,21 @@ def _gb_for_band(scene, camera, prev_gb_rows, ctx, static_ok):
 def render_band(scene, camera, frame_count, state, ctx, make_view,
                 static_ok=False, make_view2=None):
     """One frame over one band; `make_view` lifts band-local flat arrays to
-    neighbor-readable BandViews (trivial on one chip, halo-exchanged on a
-    mesh). Shared by the single-chip and sharded pipelines.
+    neighbor-readable BandViews (trivial on one device, halo-exchanged on
+    a mesh). Shared by the single-device and sharded pipelines.
 
     static_ok: traced bool - caller asserts the world (camera + scene) is
     unchanged since the previous frame, enabling temporal replay dedup
     (ops/restir.py). False is always safe.
 
     make_view2: optional (a, b) -> lazily-concatenating view. Used for
-    HUGE frames where materializing the combined G-buffer+reservoir
-    arrays (~6 GB at 4K) OOMs HBM; costs one extra gather per tap.
+    bands past _LAZY_VIEW_RAYS, where the combined G-buffer+reservoir
+    arrays (~6 GB at 4K) are not materialized; costs one extra gather
+    per tap.
     """
     width, height = ctx["width"], ctx["height"]
     n_primary = ctx["band_h"] * width
-    big = n_primary > 4 * 1024 * 1024
+    big = n_primary > _LAZY_VIEW_RAYS
 
     gb, gb_traced = _gb_for_band(scene, camera, state["gb"], ctx, static_ok)
     # gb + reservoir rows ride ONE BandView so every neighbor tap is a
@@ -129,7 +129,7 @@ def render_band(scene, camera, frame_count, state, ctx, make_view,
 @partial(jax.jit, static_argnames=("width", "height"), donate_argnums=(3,))
 def render_frame(scene, camera, frame_count, state, width: int, height: int,
                  static_ok=False):
-    """One complete ReSTIR frame on a single chip.
+    """One complete ReSTIR frame on a single device.
 
     Args:
       scene: CompiledScene.
@@ -156,24 +156,30 @@ def render_frame(scene, camera, frame_count, state, width: int, height: int,
 
 
 # ---------------------------------------------------------------------------
-# Sequential row-band rendering for HUGE single-chip frames (true 4K)
+# Sequential row-band rendering for frames past one program's budget
 # ---------------------------------------------------------------------------
 #
-# jax 0.9's XLA:TPU scheduler wants ~22 GB of copy/prefetch temps for the
-# whole 3840x2160 frame as ONE program (vs 15.75 GB HBM; PERF.md r4
-# regression note), so the frame is rendered as n_bands sequential
-# programs per phase instead. Unlike the mesh path there is NO halo
-# policy: every neighbor-dependent pass reads through FULL-resolution
-# views, so the result is BIT-IDENTICAL to render_frame (all RNG streams
-# key on band-invariant global pixel indices). Three phases with
-# full-frame barriers mirror the pass structure of render_band:
+# A frame past _BAND_RAY_BUDGET pixels renders as n_bands sequential
+# programs per phase. Unlike the mesh path there is NO halo policy:
+# every neighbor-dependent pass reads through FULL-resolution views, so
+# the result is BIT-IDENTICAL to render_frame (all RNG streams key on
+# band-invariant global pixel indices). Three phases with full-frame
+# barriers mirror the pass structure of render_band:
 #   T: G-buffer + ReSTIR temporal   (reads only PREV-frame state)
 #   S: ReSTIR spatial + shade       (reads ALL bands' temporal reservoirs)
 #   P: post/TAA/accum               (reads ALL bands' hdr)
 
-# A full-frame program at ~2M rays (1080p, config 4) compiles and fits;
-# 8.3M (4K) does not. Band programs stay comfortably under the former.
-_BAND_RAY_BUDGET = 2_400_000
+# Pixels per program before a frame is split into row bands. Measured on
+# an H100 (80 GB, 400 W limit): a 3840x2160 Cornell ReSTIR frame runs as
+# one program at 2.40 s/frame with an 8.75 GB peak, against 2.44 s as 4
+# row bands - so one program up to 4x that frame (~35 GB by linear
+# scaling, inside the 60 GB a JAX process holds by default).
+_BAND_RAY_BUDGET = 4 * 3840 * 2160
+# Past this many pixels per band, render_band reads the G-buffer and the
+# reservoirs through lazily concatenated views instead of materializing
+# their concatenation (~6 GB at 4K). The 4K measurement above ran with
+# them; the materialized form at 4K is not measured.
+_LAZY_VIEW_RAYS = 4 * 1024 * 1024
 
 
 def auto_bands(width: int, height: int) -> int:
@@ -185,6 +191,16 @@ def auto_bands(width: int, height: int) -> int:
     while height % k:
         k += 1
     return k
+
+
+def frame_renderer(width: int, height: int):
+    """f(scene, camera, frame_count, state, static_ok=False) for one
+    device: render_frame, or render_frame_banded when auto_bands > 1."""
+    bands = auto_bands(width, height)
+    if bands > 1:
+        return partial(render_frame_banded, width=width, height=height,
+                       n_bands=bands)
+    return partial(render_frame, width=width, height=height)
 
 
 @partial(jax.jit, static_argnames=("width", "height", "band_h"))
@@ -251,7 +267,7 @@ def _banded_post(frame_count, y0, gb, gb_full, hdr_full, accum_full,
 
 def render_frame_banded(scene, camera, frame_count, state, width: int,
                         height: int, n_bands: int, static_ok=False):
-    """One ReSTIR frame as n_bands sequential row-band programs, one chip.
+    """One ReSTIR frame as n_bands sequential row-band programs, one device.
 
     Same signature/returns as render_frame and bit-identical output (see
     module note above); use for frames too large to schedule as one XLA

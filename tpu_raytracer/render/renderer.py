@@ -1,6 +1,6 @@
 """Frame renderer: the jitted per-frame pipeline.
 
-TPU equivalent of `Renderer::render` (src/renderer.rs:349-515): the whole
+JAX equivalent of `Renderer::render` (src/renderer.rs:349-515): the whole
 frame - G-buffer, path trace / ReSTIR, post - is ONE jitted function over a
 functional FrameState pytree (the reference's ping-pong buffers become
 carried state with donated buffers; parity tricks like `frame_count % 2`

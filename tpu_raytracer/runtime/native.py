@@ -1,7 +1,7 @@
 """ctypes bindings for the native C++ runtime (PNG encode, pixel convert).
 
 Builds the shared library on first use with g++ (no pip deps); falls back
-to PIL / numpy paths if no toolchain is available, so the framework stays
+to numpy / zlib paths if no toolchain is available, so the framework stays
 importable everywhere.
 """
 
@@ -73,7 +73,7 @@ def get_lib():
 
 
 def write_png(path: str, img_u8: np.ndarray) -> None:
-    """Fast PNG save (zlib level 1, filter None); PIL fallback."""
+    """Fast PNG save (zlib level 1, filter None); utils/png fallback."""
     img_u8 = np.ascontiguousarray(img_u8)
     assert img_u8.dtype == np.uint8 and img_u8.ndim == 3
     h, w, c = img_u8.shape
@@ -83,9 +83,9 @@ def write_png(path: str, img_u8: np.ndarray) -> None:
         rc = lib.tpurt_write_png(path.encode(), img_u8.ctypes.data, w, h, c)
         if rc == 0:
             return
-    from PIL import Image
+    from ..utils import png
 
-    Image.fromarray(img_u8).save(path, optimize=False)
+    png.write(path, img_u8, level=1)
 
 
 def linear_to_srgb_u8(img_f32: np.ndarray, n_threads: int | None = None

@@ -5,7 +5,7 @@ Shape-compatible with the reference's fluent builder
 / `register_quad_light` / `register_sphere_light` / `add_*_texture` /
 `build()`.  Where the reference's `build` uploads GPU buffers and asks the
 driver for TLAS/BLAS builds (builder.rs:143-179,454-468), this one compiles
-the scene TPU-natively:
+the scene into device arrays:
 
   * instances' triangles are transformed to world space into one flat soup
     (per-triangle instance/prim metadata preserves the reference's
@@ -25,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..ops import bvh as bvh_ops
+from ..ops.intersect import pack_triangles
 from ..utils import math3d
 from . import light as light_mod
 from .geometry import Mesh
@@ -32,6 +33,16 @@ from .material import Material, pack_materials
 from .resources import CompiledScene
 
 TEXTURE_SIZE = 1024  # reference: scene/mod.rs TEXTURE_WIDTH/HEIGHT = 1024
+
+# "auto" instancing threshold, in flattened world triangles. A flattened
+# triangle costs ~420 bytes of scene arrays (shading rows, planes, BVH
+# stream; textures aside), so 32M of them take ~13 GB - a fifth of the
+# 60 GB a JAX process holds on an 80 GB H100. Below that the flattened
+# world is faster: on an H100 (700 W limit) the 100-instance gallery
+# (512k world triangles) takes 1,357 ms per 262k-ray call on the
+# instanced scan and 19.7 ms flattened on the BVH walk, and renders at
+# 3.95 fps flattened.
+INSTANCE_AUTO_TRIS = 32 * 1024 * 1024
 
 
 def _subdivide_world(bundle, scalars, max_diag):
@@ -100,12 +111,15 @@ def _prep_texture(img: np.ndarray, srgb: bool) -> np.ndarray:
     else:
         img = img.astype(np.float32)
     if img.shape[0] != TEXTURE_SIZE or img.shape[1] != TEXTURE_SIZE:
-        # Lanczos resize to the fixed array size (loader.rs:20-57 policy).
-        from PIL import Image
+        # resize to the fixed array size (loader.rs:20-57 policy): cubic
+        # spline per channel through scipy, clamped to the texel range
+        from scipy import ndimage
 
-        pil = Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8))
-        pil = pil.resize((TEXTURE_SIZE, TEXTURE_SIZE), Image.LANCZOS)
-        img = np.asarray(pil).astype(np.float32) / 255.0
+        zoom = (TEXTURE_SIZE / img.shape[0], TEXTURE_SIZE / img.shape[1])
+        img = np.stack([ndimage.zoom(np.clip(img[:, :, k], 0.0, 1.0), zoom,
+                                     order=3, grid_mode=True, mode="reflect")
+                        for k in range(3)], axis=-1)
+        img = np.clip(img, 0.0, 1.0)
     return img
 
 
@@ -267,37 +281,23 @@ class SceneBuilder:
 
         instancing: "auto" | "on" | "off" - two-level shared-BLAS mode
         (src/scene/builder.rs:143-189 economics): ONE object-space
-        triangle/coefficient block per mesh, instances as transforms
-        only. "auto" enables it when flattening would exceed the brute
-        intersector's triangle cap while the unique meshes fit the
-        VMEM-resident coef budget (the regime where flattening costs
-        instances x mesh memory for no benefit). See
-        ops/pallas_trace.trace_instanced_pallas.
+        triangle block per mesh, instances as transforms only, traced by
+        an unculled scan over every (instance, chunk group)
+        (trace_api._trace_instanced_xla). "auto" enables it only when the
+        flattened world would pass INSTANCE_AUTO_TRIS: flattened scenes
+        get the sweep or the BVH walk, which the scan does not beat (see
+        INSTANCE_AUTO_TRIS), so instancing is worth it for memory alone.
         """
         import jax.numpy as jnp
 
         from ..ops import textures as textures_mod
-        from ..ops.pallas_trace import MXUF_MAX_TP
 
         if instancing not in ("auto", "on", "off"):
             raise ValueError(f"instancing={instancing!r}")
         t_world = sum(self.meshes[m].num_triangles
                       for m, _, _ in self.instances)
-        used = sorted({m for m, _, _ in self.instances})
-        from ..ops.pallas_trace import CT as _CT
-        from ..ops.pallas_trace import INST_GRP as _IG
-        from ..ops.trace_api import BRUTE_FORCE_MAX_TRIS
-        unit = _IG * _CT
-        tp_obj = sum(max(-(-self.meshes[m].num_triangles // unit), 1) * unit
-                     for m in used)
-        # NOTE: auto's threshold tracks the swept-path cap, which r3's
-        # segmented worklists raised 131072 -> 524288: auto scenes in
-        # that band now FLATTEN (per-instance memory, streamed mxus
-        # sweep) where they used to instance. Explicit instancing="on"
-        # keeps the per-mesh memory model regardless of size.
         want_instanced = (instancing == "on") or (
-            instancing == "auto" and t_world > BRUTE_FORCE_MAX_TRIS
-            and tp_obj <= MXUF_MAX_TP)
+            instancing == "auto" and t_world > INSTANCE_AUTO_TRIS)
         if want_instanced:
             if subdivide_max_diag is not None:
                 raise ValueError(
@@ -453,8 +453,8 @@ class SceneBuilder:
 
         # 3. BVH over the soup; then REORDER all per-triangle data into the
         # BVH's DFS leaf order. Consecutive triangles become spatially
-        # coherent, which drives the brute-force intersector's chunk-AABB
-        # culling (ops/pallas_trace.py) and keeps BVH leaf ranges contiguous.
+        # coherent (nearby rows in every per-triangle table) and BVH leaf
+        # ranges stay contiguous.
         wv1 = world_v0 + world_e1
         wv2 = world_v0 + world_e2
         aabb_min = np.minimum(np.minimum(world_v0, wv1), wv2)
@@ -475,14 +475,12 @@ class SceneBuilder:
             tree.tri_id[tree.skip < 0] = inv[order].astype(np.int32)  # = 0..T-1
 
         bvh_ops.fill_triangles(tree, world_v0, world_e1, world_e2)
-        from ..ops.pallas_trace import pack_triangles
-        tri_planes, chunk_aabb, _ = pack_triangles(world_v0, world_e1, world_e2)
+        tri_planes = pack_triangles(world_v0, world_e1, world_e2)
 
         # widen the shading rows with world v0/e1/e2 (cols 26:35): the
         # intersector returns only (t, tri) and reconstruct_hit recomputes
-        # exact u/v/front from this one wide gather - keeps ~15% of the
-        # Moller-Trumbore sweep (per-chunk winner attribute selection) out
-        # of the hot Pallas kernel.
+        # exact u/v/front from this one wide gather, so the sweep carries
+        # no per-chunk winner attribute selection.
         if t_total > 0:
             tri_table = np.concatenate(
                 [tri_table, world_v0, world_e1, world_e2], axis=1)
@@ -501,22 +499,12 @@ class SceneBuilder:
         (materials, mat_table, tex_channels, lights, light_table,
          color_tex, data_tex) = self._pack_tables()
 
-        # precomputed fused bf16 MT coefficients (PERF.md r3: XLA re-ran
-        # the conversion inside every bounce-loop body when left to the
-        # trace call)
-        from ..ops.pallas_trace import default_coef_grp, mt_coef48
-        coef_grp = default_coef_grp(tri_planes.shape[2])
-        coef48 = (mt_coef48(jnp.asarray(tri_planes), coef_grp) if coef_grp
-                  else jnp.zeros((48, 0), jnp.bfloat16))
 
         i = np.int32
         f = np.float32
         scene = CompiledScene(
             **_empty_instanced_fields(),
-            coef48=coef48,
-            coef48_grp=coef_grp,
             tri_planes=tri_planes,
-            chunk_aabb=chunk_aabb,
             tri_table=tri_table.astype(f),
             tri_table_local=tri_table_local.astype(f),
             bvh_tri_rows=bvh_tri_rows,
@@ -566,10 +554,9 @@ class SceneBuilder:
 
     def _build_instanced(self) -> CompiledScene:
         """Two-level shared-BLAS compile (src/scene/builder.rs:143-189
-        economics, TPU-native realization in
-        ops/pallas_trace.trace_instanced_pallas):
+        economics, traced by trace_api._trace_instanced_xla):
 
-          * ONE object-space triangle/coefficient block per unique mesh
+          * ONE object-space triangle block per unique mesh
             (padded to grp*CT so chunk groups never span meshes) - memory
             is sum-of-unique-meshes, not instances x mesh size;
           * per-instance world->object affine + world AABB + normal
@@ -583,10 +570,8 @@ class SceneBuilder:
         import jax
         import jax.numpy as jnp
 
-        from ..ops import pallas_trace as _pt
         from ..ops import textures as textures_mod
-        from ..ops.pallas_trace import CT, INST_GRP
-        from ..ops.pallas_trace import pack_triangles_instanced
+        from ..ops.intersect import CT, INST_GRP, pack_triangles_instanced
 
         unit = INST_GRP * CT
         i = np.int32
@@ -642,8 +627,7 @@ class SceneBuilder:
             mesh_tris.append((v0, e1, e2))
             vs = np.concatenate([v0, v0 + e1, v0 + e2], axis=0)
             obj_aabb_mesh.append((vs.min(axis=0), vs.max(axis=0)))
-        obj_planes, obj_gaabb, spans = pack_triangles_instanced(
-            mesh_tris, grp=INST_GRP)
+        obj_planes, spans = pack_triangles_instanced(mesh_tris, grp=INST_GRP)
         tp_obj = obj_planes.shape[2]
 
         # 3. object-space shading rows [TpO, 35] at the PADDED layout
@@ -678,7 +662,7 @@ class SceneBuilder:
         n_inst = len(self.instances)
         inst_table = np.zeros((max(n_inst, 1), 23), np.float32)
         inst_aabb = np.zeros((max(n_inst, 1), 8), np.float32)
-        inst_span = np.zeros((2, max(n_inst, 1)), np.int32)
+        inst_obj_aabb = np.zeros((max(n_inst, 1), 6), np.float32)
         inst_mesh, inst_mat, inst_tf, inst_nm = [], [], [], []
         unit_inst, unit_group = [], []
         world_tris = 0
@@ -693,6 +677,8 @@ class SceneBuilder:
             inst_table[inst_id, 21] = np.sign(np.linalg.det(a)) or 1.0
             inst_table[inst_id, 22] = mat_id
             mn, mx = obj_aabb_mesh[slot[mesh_id]]
+            inst_obj_aabb[inst_id, 0:3] = mn
+            inst_obj_aabb[inst_id, 3:6] = mx
             c_o = (mn + mx) * 0.5
             e_o = (mx - mn) * 0.5
             c_w = a @ c_o + t
@@ -700,8 +686,6 @@ class SceneBuilder:
             inst_aabb[inst_id, 0:3] = c_w - e_w
             inst_aabb[inst_id, 3:6] = c_w + e_w
             base_g, ng = spans[0, slot[mesh_id]], spans[1, slot[mesh_id]]
-            inst_span[0, inst_id] = base_g
-            inst_span[1, inst_id] = ng
             unit_inst.extend([inst_id] * int(ng))
             unit_group.extend(range(int(base_g), int(base_g + ng)))
             world_tris += self.meshes[mesh_id].num_triangles
@@ -715,15 +699,14 @@ class SceneBuilder:
 
         scene = CompiledScene(
             tri_planes=obj_planes,
-            chunk_aabb=np.zeros((1, 8), f),      # flattened-mode only
             tri_table=tri_table,
             tri_table_local=np.zeros((1, 26), f),
             bvh_tri_rows=np.zeros((1,), i),
             mat_table=mat_table.astype(f),
             light_table=light_table.astype(f),
-            bvh_rec=np.zeros((1, 12), f),        # no world BVH: culling is
-            bvh_skip=np.full((1,), -1, i),       # TLAS bitmask + object
-            bvh_tri=np.zeros((1,), i),           # group slabs in-kernel
+            bvh_rec=np.zeros((1, 12), f),        # no world BVH: the
+            bvh_skip=np.full((1,), -1, i),       # instanced scan tests
+            bvh_tri=np.zeros((1,), i),           # every (instance, unit)
             bvh_left=np.zeros((1,), i),
             bvh_right=np.zeros((1,), i),
             bvh_depth=np.zeros((1,), i),
@@ -742,12 +725,9 @@ class SceneBuilder:
             inst_table=inst_table,
             inst_affine_inv=inst_table[:, :12].T.copy(),
             inst_aabb=inst_aabb,
-            obj_group_aabb=obj_gaabb,
-            inst_group_span=inst_span,
+            inst_obj_aabb=inst_obj_aabb,
             unit_inst=np.asarray(unit_inst, i),
             unit_group=np.asarray(unit_group, i),
-            coef48=_pt.mt_coef48(jnp.asarray(obj_planes), INST_GRP),
-            coef48_grp=INST_GRP,
             attr_oct_normal=attr_n.astype(f),
             attr_uv=attr_uv.astype(f),
             attr_tangent=attr_tan.astype(f),
@@ -779,8 +759,7 @@ def _empty_instanced_fields():
         inst_table=np.zeros((0, 23), f),
         inst_affine_inv=np.zeros((12, 0), f),
         inst_aabb=np.zeros((0, 8), f),
-        obj_group_aabb=np.zeros((8, 0), f),
-        inst_group_span=np.zeros((2, 0), i),
+        inst_obj_aabb=np.zeros((0, 6), f),
         unit_inst=np.zeros((0,), i),
         unit_group=np.zeros((0,), i),
     )

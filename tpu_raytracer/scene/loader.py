@@ -5,7 +5,7 @@ and .glb (binary container), extracting per-primitive meshes with
 positions / normals (oct-encoded) / uvs / tangents and index widening
 (u8/u16 -> i32, non-indexed sequential fallback; loader.rs:106-177), plus
 PBR metallic-roughness materials with base-color / normal / occlusion /
-emissive / MR texture indices (loader.rs:59-99). Images decode through PIL
+emissive / MR texture indices (loader.rs:59-99). Images decode through utils/png
 and are resized to the 1024x1024 texture-array policy at scene build
 (loader.rs:20-57).
 
@@ -92,25 +92,44 @@ def _read_accessor(gltf: dict, buffers: list, accessor_idx: int) -> np.ndarray:
     return np.array(arr)
 
 
-def _decode_image(gltf: dict, buffers: list, base_dir: str,
-                  image_idx: int) -> np.ndarray:
+def _decode_bytes(data: bytes) -> np.ndarray:
+    """Image file bytes -> [H, W, 4] uint8 RGBA. PNG decodes in numpy
+    (utils/png.py); other formats (JPEG) need Pillow."""
+    from ..utils import png
+
+    if data[:8] == b"\x89PNG\r\n\x1a\n":
+        img = png.decode(data)
+        c = img.shape[2]
+        rgb = img[:, :, :1].repeat(3, axis=2) if c <= 2 else img[:, :, :3]
+        alpha = (img[:, :, -1:] if c in (2, 4)
+                 else np.full(img.shape[:2] + (1,), 255, np.uint8))
+        return np.concatenate([rgb, alpha], axis=2)
+    try:
+        from PIL import Image
+    except ImportError:
+        raise ValueError(
+            "this glTF texture is not a PNG; decoding it (JPEG) needs "
+            "Pillow, which is not installed") from None
     from io import BytesIO
 
-    from PIL import Image
+    return np.asarray(Image.open(BytesIO(data)).convert("RGBA"))
 
+
+def _decode_image(gltf: dict, buffers: list, base_dir: str,
+                  image_idx: int) -> np.ndarray:
     img = gltf["images"][image_idx]
     if "uri" in img:
         uri = img["uri"]
         if uri.startswith("data:"):
-            pil = Image.open(BytesIO(base64.b64decode(uri.split(",", 1)[1])))
+            data = base64.b64decode(uri.split(",", 1)[1])
         else:
-            pil = Image.open(os.path.join(base_dir, uri))
+            with open(os.path.join(base_dir, uri), "rb") as f:
+                data = f.read()
     else:
         view = gltf["bufferViews"][img["bufferView"]]
         off = view.get("byteOffset", 0)
-        pil = Image.open(BytesIO(
-            buffers[view["buffer"]][off:off + view["byteLength"]]))
-    return np.asarray(pil.convert("RGBA"))
+        data = bytes(buffers[view["buffer"]][off:off + view["byteLength"]])
+    return _decode_bytes(data)
 
 
 def _tex_image(gltf: dict, tex_idx: int) -> int:

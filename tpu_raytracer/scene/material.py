@@ -2,8 +2,8 @@
 
 Mirrors the reference's 64-byte GPU material (src/scene/material.rs:1-28) but
 keeps logical fields unpacked; the packed-u16 texture-id representation is
-only used at array-packing time (the TPU build stores texture ids as plain
-int32 lanes in a SoA material table - byte-level packing buys nothing on TPU).
+only used at array-packing time (this build stores texture ids as plain
+int32 lanes in a SoA material table - byte-level packing buys nothing here).
 
 Texture id sentinel: ``NO_TEXTURE`` (= 0xFFFF, material.rs:41-44).
 """
@@ -85,7 +85,7 @@ class Material:
 
 
 def pack_materials(materials: list) -> dict:
-    """Pack a material list into SoA numpy arrays (the TPU-side table).
+    """Pack a material list into SoA numpy arrays (the device-side table).
 
     Layout replaces the reference's byte-packed struct with flat lanes:
       base_color [M,4] f32, emissive [M,3] f32, scalars [M] f32,

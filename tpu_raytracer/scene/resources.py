@@ -1,10 +1,10 @@
 """Compiled scene resources: the pytree of device arrays a render consumes.
 
-This is the TPU-native analogue of the reference's `SceneResources`
+This is the JAX analogue of the reference's `SceneResources`
 (src/scene/resources.rs:11-22): instead of driver-owned TLAS/BLAS handles and
 GPU buffer objects, everything is a JAX array in one pytree, so the whole
-scene can be donated, sharded (replicated per chip - scenes are << HBM), and
-threaded through jitted render steps.
+scene can be donated, sharded (replicated per device - scenes are small next
+to device memory), and threaded through jitted render steps.
 
 Static (non-array) facts live in metadata fields so jit re-traces only when
 the scene's *shape* changes, not its contents.
@@ -22,15 +22,15 @@ import numpy as np
 @partial(
     jax.tree_util.register_dataclass,
     data_fields=[
-        "tri_planes", "chunk_aabb", "tri_table", "tri_table_local",
+        "tri_planes", "tri_table", "tri_table_local",
         "mat_table", "light_table", "bvh_tri_rows",
         "bvh_rec", "bvh_skip", "bvh_tri",
         "bvh_left", "bvh_right", "bvh_depth",
         "tri_inst", "tri_prim", "tri_local",
         "local_v0", "local_e1", "local_e2",
         "inst_mesh_id", "inst_mat_id", "inst_transform", "inst_normal_mat",
-        "inst_table", "inst_affine_inv", "inst_aabb", "obj_group_aabb",
-        "inst_group_span", "unit_inst", "unit_group", "coef48",
+        "inst_table", "inst_affine_inv", "inst_aabb", "inst_obj_aabb",
+        "unit_inst", "unit_group",
         "attr_oct_normal", "attr_uv", "attr_tangent",
         "indices", "mesh_vertex_offset", "mesh_index_offset",
         "materials", "lights",
@@ -38,13 +38,12 @@ import numpy as np
     ],
     meta_fields=["num_lights", "num_instances", "bvh_max_depth",
                  "tex_channels", "instanced", "world_tri_count",
-                 "inst_grp", "coef48_grp"],
+                 "inst_grp"],
 )
 @dataclasses.dataclass
 class CompiledScene:
-    # --- Pallas brute-force intersector planes (see ops/pallas_trace.py) ---
+    # --- swept intersector planes (see ops/intersect.pack_triangles) ---
     tri_planes: jax.Array   # [4, 3, Tp] f32 (v0 | e1 | e2 | valid-mask)
-    chunk_aabb: jax.Array   # [Tp/CT, 8] f32 per-chunk culling boxes
 
     # --- consolidated shading tables (one wide gather per hit; ops/hit.py) ---
     # tri_table [T, 35]; cols 26:35 = world v0 | e1 | e2 (exact u/v/front
@@ -87,22 +86,15 @@ class CompiledScene:
     inst_normal_mat: jax.Array  # [I, 3, 3] f32 (world normal = nm @ local n)
 
     # --- two-level INSTANCED intersector (shared-BLAS analogue; empty for
-    # flattened scenes - see ops/pallas_trace.trace_instanced_pallas) ---
+    # flattened scenes - see ops/trace_api._trace_instanced_xla) ---
     # inst_table [I, 23]: A^-1 (9) | b (3) | nm (9) | det-sign | mat_id -
     # the per-hit reconstruction row (ops/hit.py instanced branch)
     inst_table: jax.Array
-    inst_affine_inv: jax.Array  # [12, I] f32 transposed (SMEM-ready)
+    inst_affine_inv: jax.Array  # [12, I] f32 world->object, transposed
     inst_aabb: jax.Array        # [I, 8] f32 instance WORLD AABBs
-    obj_group_aabb: jax.Array   # [8, NGO] f32 object-space group AABBs
-    inst_group_span: jax.Array  # [2, I] i32 (group base, count) per inst
-    unit_inst: jax.Array        # [NU] i32 (CPU-fallback unit tables)
-    unit_group: jax.Array       # [NU] i32
-    # precomputed fused bf16 MT coefficients [48, NG*grp*4*CT] for the
-    # grp the intersector will pick (pallas_trace.default_coef_grp).
-    # Hoisted to build time because XLA re-ran the f32->bf16 hi/lo
-    # conversion INSIDE the bounce-loop while bodies (~13 ms/frame at
-    # 512^2, HLO fusion.1374, PERF.md r3). Refit recomputes it.
-    coef48: jax.Array
+    inst_obj_aabb: jax.Array    # [I, 6] f32 mesh OBJECT AABB (refit input)
+    unit_inst: jax.Array        # [NU] i32 instance of each scan unit
+    unit_group: jax.Array       # [NU] i32 object chunk group of each unit
 
     # --- global concatenated vertex attributes (builder.rs:123-141 layout) ---
     attr_oct_normal: jax.Array  # [A, 2] f32
@@ -136,7 +128,6 @@ class CompiledScene:
     # len(tri_inst) for flattened scenes
     world_tri_count: int
     inst_grp: int   # chunk-group width of the instanced object layout
-    coef48_grp: int  # group width coef48 was packed with (0 = absent)
 
     @property
     def num_triangles(self) -> int:

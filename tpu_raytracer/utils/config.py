@@ -24,7 +24,7 @@ class RenderConfig:
     denoise_iterations: int = 4
     debug_mode: int = 0             # 0 shaded | 1 pos | 2 normal | 3 albedo
                                     # | 4 motion (renderer.rs:407-508)
-    tiles: int = 1                  # device-mesh row bands (1 = single chip)
+    tiles: int = 1                  # device-mesh row bands (1 = one device)
     halo: int = 16
     checkpoint: str = ""            # resume path ("" = fresh)
     out_dir: str = "output"

@@ -18,10 +18,10 @@ def linear_to_srgb_u8(img: np.ndarray) -> np.ndarray:
 
 
 def save_png(path: str, img_u8: np.ndarray) -> None:
-    from PIL import Image
+    from . import png
 
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    Image.fromarray(img_u8).save(path, optimize=False)
+    png.write(path, img_u8)
 
 
 def psnr(a: np.ndarray, b: np.ndarray, peak: float = 1.0) -> float:

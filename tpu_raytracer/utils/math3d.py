@@ -1,4 +1,4 @@
-"""Vector / matrix math for the TPU ray tracer.
+"""Vector / matrix math for the ray tracer.
 
 Everything here is pure jnp, shape-polymorphic over leading batch dims, and
 jittable.  Conventions follow the reference renderer's host math (glam,

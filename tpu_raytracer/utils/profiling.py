@@ -3,14 +3,14 @@
 The reference's observability is an FPS window title (main.rs:81-95) and a
 screenshot-save wall-clock print (screenshot.rs:151-155); its compute passes
 explicitly skip GPU timestamps (gbuffer.rs:295). This module provides the
-real thing for the TPU build (SURVEY.md §5 plan):
+real thing (SURVEY.md §5 plan):
 
   * `FrameStats`: rolling fps + exact Mrays/s from the pipeline's ray
     counters,
   * `timed`: block-until-ready wall-clock stage timer,
-  * `trace`: context manager around `jax.profiler.trace` for full XLA/TPU
-    traces viewable in TensorBoard/Perfetto,
-  * `device_memory`: live HBM allocation snapshot.
+  * `trace`: context manager around `jax.profiler.trace` for full XLA
+    device traces viewable in TensorBoard/Perfetto,
+  * `device_memory`: live device-memory allocation snapshot.
 """
 
 from __future__ import annotations
@@ -67,15 +67,16 @@ def timed(label: str, results: dict | None = None):
 
 @contextlib.contextmanager
 def trace(log_dir: str = "/tmp/tpu_raytracer_trace"):
-    """Capture a full XLA/TPU profiler trace (TensorBoard `profile` plugin
-    or Perfetto). Wrap a few steady-state frames, not the compile."""
+    """Capture a full XLA profiler trace of the device (TensorBoard
+    `profile` plugin or Perfetto). Wrap a few steady-state frames, not
+    the compile."""
     with jax.profiler.trace(log_dir):
         yield
     print(f"profiler trace written to {log_dir}")
 
 
 def device_memory() -> dict:
-    """Per-device live HBM bytes (allocation telemetry)."""
+    """Per-device live memory bytes (allocation telemetry)."""
     out = {}
     for d in jax.devices():
         try:

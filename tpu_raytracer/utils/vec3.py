@@ -1,11 +1,8 @@
 """Component-major 3-vectors for the wavefront hot path.
 
-XLA:TPU tiles a row-major ``[R, 3]`` f32 array as T(8,128): the minor dim
-of 3 pads to 128 lanes, so every materialized ``[R, 3]`` intermediate
-costs ~42x its useful bytes in HBM traffic and VPU lanes (PERF.md r3 -
-the per-bounce shading glue, not the intersector, dominated the frame).
-The bounce-loop wavefront therefore carries vectors as three dense ``[R]``
-component arrays. ``V3`` is a NamedTuple (hence a JAX pytree): it flows
+A row-major ``[R, 3]`` f32 array has a minor dim of 3, which layouts tiled
+for wide vector units pad many times over. The bounce-loop wavefront
+therefore carries vectors as three dense ``[R]`` component arrays. ``V3`` is a NamedTuple (hence a JAX pytree): it flows
 through ``lax.while_loop`` carries, ``jnp.where`` helpers below, and
 arithmetic operators without ever materializing a padded array.
 
